@@ -1,0 +1,112 @@
+"""Build and load the port's CUDA kernels (route: nvcc -> .so -> ctypes).
+
+The pattern follows raisin_tpu/native/__init__.py: a hash of the sources,
+the nvcc flags and ``nvcc --version`` names the library, it is built on first use and loaded with ctypes. The
+sources are ``raisin_tpu_torch/csrc/*.cu`` (plus their ``*.cuh``); the
+library lands in ``raisin_tpu_torch/_build/``. Nothing here runs at import
+time, and a failed build raises: no caller falls back to a plain version.
+
+Every exported function returns ``cudaGetLastError()`` after its launch;
+:func:`check` turns a nonzero code into a RuntimeError.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# exported C function -> argument types (pointers and the stream as void*)
+SIGNATURES = {
+    "rsn_arith_encode": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "rsn_arith_prepad": [_P, _P, _P, _P, _I, _I, _P],
+    "rsn_arith_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+}
+
+
+class KernelBuildError(RuntimeError):
+    pass
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_nvcc = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(cuda_nvcc):
+        return cuda_nvcc
+    raise KernelBuildError("nvcc not found (PATH or /usr/local/cuda/bin)")
+
+
+def library_name(nvcc_version: str) -> str:
+    """The library's file name: a hash of the flags, the compiler and the sources."""
+    h = hashlib.sha256()
+    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(nvcc_version.encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return f"raisin_kernels-{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels if no library of this name exists yet."""
+    nvcc = _nvcc()
+    version = subprocess.run([nvcc, "--version"], capture_output=True, text=True, check=True).stdout
+    so_path = BUILD_DIR / library_name(version)
+    if so_path.exists():
+        return so_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so_path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(s) for s in sorted(CSRC.glob("*.cu")))]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise KernelBuildError(f"nvcc failed ({' '.join(cmd)}):\n{proc.stderr}")
+    os.replace(tmp, so_path)
+    return so_path
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.rsn_error_string.argtypes = [ctypes.c_int]
+    lib.rsn_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(name: str, rc: int) -> None:
+    """Raise if a launch reported a CUDA error."""
+    if rc != 0:
+        msg = library().rsn_error_string(rc).decode(errors="replace")
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def stream_handle(device) -> int:
+    """PyTorch's current stream on ``device`` as a raw handle for ctypes."""
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,234 @@
+"""The port's RSNB container against the JAX package's, byte for byte.
+
+``raisin_tpu_torch.parallel`` on the CPU runs the plain PyTorch versions of
+its kernels; ``raisin_tpu.parallel`` runs on CPU JAX. For the
+``("arithmetic",)`` pipeline the two must write identical containers and
+each must decode the other's (tolerance 0: the outputs are bytes).
+"""
+
+from __future__ import annotations
+
+import functools
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from raisin_tpu.formats import arithmetic_ref
+from raisin_tpu.parallel import blocks as jax_blocks
+from raisin_tpu_torch.parallel import blocks as port_blocks
+from tests.fixtures import random_bytes, random_text
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parent.parent
+BLOCK_SIZES = [512, 2048]
+INPUTS = {
+    "text": lambda bs: random_text(5000, seed=90),
+    "binary": lambda bs: random_bytes(3000, seed=91),
+    "escape_heavy": lambda bs: (b"<<<\\\xff,,>>>" * 400)[:3500],
+    "ragged_tail": lambda bs: random_text(2 * bs + 77, seed=92),
+    "empty": lambda bs: b"",
+    "one_block": lambda bs: random_text(bs, seed=93),
+}
+CASES = [(name, bs) for name in INPUTS for bs in BLOCK_SIZES]
+
+
+@functools.cache
+def _containers(name: str, bs: int):
+    """(data, JAX container, port container) for one case."""
+    data = INPUTS[name](bs)
+    jax_c = jax_blocks.compress_container(data, ("arithmetic",), block_size=bs)
+    port_c = port_blocks.compress_container(data, ("arithmetic",), block_size=bs, device="cpu")
+    return data, jax_c, port_c
+
+
+@pytest.mark.parametrize("name, bs", CASES)
+def test_port_container_equals_jax(name, bs):
+    data, jax_c, port_c = _containers(name, bs)
+    assert port_c == jax_c
+    _, _, orig, payloads, aux, _ = port_blocks.parse_container(port_c)
+    assert orig == len(data) and aux == []
+    assert payloads == [arithmetic_ref.compress(data[i : i + bs]) for i in range(0, max(len(data), 1), bs)]
+
+
+@pytest.mark.parametrize("name, bs", CASES)
+def test_port_decodes_jax_container(name, bs):
+    data, jax_c, _ = _containers(name, bs)
+    assert port_blocks.decompress_container(jax_c, device="cpu") == data
+
+
+@pytest.mark.parametrize("name, bs", CASES)
+def test_jax_decodes_port_container(name, bs):
+    data, _, port_c = _containers(name, bs)
+    assert jax_blocks.decompress_container(port_c) == data
+
+
+def test_framing_matches_jax():
+    data, jax_c, _ = _containers("ragged_tail", 512)
+    parsed = port_blocks.parse_container(jax_c)
+    assert parsed == jax_blocks.parse_container(jax_c)
+    algorithms, bs, orig, payloads, aux, window = parsed
+    assert port_blocks.assemble_container(payloads, aux, algorithms, bs, window, orig) == jax_c
+    aux_tables = [[len(p) + 1 for p in payloads], [7] * len(payloads)]
+    assert port_blocks.assemble_container(
+        payloads, aux_tables, ("lzss", "arithmetic"), bs, 2048, orig
+    ) == jax_blocks.assemble_container(payloads, aux_tables, ("lzss", "arithmetic"), bs, 2048, orig)
+
+
+@pytest.mark.parametrize("algorithms", [("lzss", "arithmetic"), ("huffman",), ("gzip",)])
+def test_unported_pipelines_name_their_roadmap_item(algorithms):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+        port_blocks.compress_container(b"abc" * 100, algorithms, block_size=512, device="cpu")
+    c = jax_blocks.compress_container(b"abc" * 100, algorithms, block_size=512)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+        port_blocks.decompress_container(c, device="cpu")
+
+
+def test_missing_eof_raises_like_jax():
+    # block 0 holds 5 bytes but its stream goes on past them: no EOF at 5
+    c = port_blocks.assemble_container(
+        [arithmetic_ref.compress(b"abcdefgh"), arithmetic_ref.compress(b"de")],
+        [], ("arithmetic",), 5, 4096, 7,
+    )
+    for decode in (jax_blocks.decompress_container, port_blocks.decompress_container):
+        with pytest.raises(ValueError, match="block 0 missing EOF"):
+            decode(c)
+
+
+def test_length_check_raises_like_jax():
+    # header says 10 bytes in blocks of 4, but only two payloads follow
+    c = port_blocks.assemble_container(
+        [arithmetic_ref.compress(b"abcd"), arithmetic_ref.compress(b"efgh")],
+        [], ("arithmetic",), 4, 4096, 10,
+    )
+    for decode in (jax_blocks.decompress_container, port_blocks.decompress_container):
+        with pytest.raises(ValueError, match="decoded 8 bytes, expected 10"):
+            decode(c)
+
+
+def test_port_runs_without_jax():
+    code = (
+        "import sys\n"
+        "import raisin_tpu_torch, raisin_tpu_torch.parallel.blocks as b\n"
+        "d = bytes(range(256)) * 16\n"
+        "c = b.compress_container(d, ('arithmetic',), block_size=1024, device='cpu')\n"
+        "assert b.decompress_container(c, device='cpu') == d\n"
+        "leaked = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'raisin_tpu.')))\n"
+        "assert not leaked and 'raisin_tpu' not in sys.modules, leaked\n"
+        "print('ok', len(c))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=300
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_port_sources_never_import_jax_or_the_jax_package():
+    sources = sorted((REPO / "raisin_tpu_torch").rglob("*.py"))
+    assert sources
+    for path in sources:
+        text = path.read_text()
+        assert not re.search(r"^\s*(import jax|from jax)\b", text, re.M), path
+        # the JAX package only lazily, inside a function (its import loads JAX)
+        assert not re.search(r"^(import|from) raisin_tpu\b(?!_torch)", text, re.M), path
+
+
+@pytest.mark.parametrize(
+    "n, bs, want_lengths",
+    [(0, 4, [0]), (3, 4, [3]), (4, 4, [4]), (9, 4, [4, 4, 1]), (12, 4, [4, 4, 4])],
+)
+def test_block_lengths_split_like_jax(n, bs, want_lengths):
+    data = bytes(range(1, n + 1))
+    W, lengths = port_blocks._block_lengths(n, bs)
+    assert lengths.tolist() == want_lengths and W == max(want_lengths)
+    jax_split = [data[i : i + bs] for i in range(0, len(data), bs)] or [b""]
+    assert [data[i * W : i * W + k] for i, k in enumerate(lengths)] == jax_split
+
+
+def test_host_device_bytes_round_trip():
+    for buf in (b"", b"abc", memoryview(b"xyzw")[1:3]):
+        t = port_blocks._h2d(buf, torch.device("cpu"))
+        assert t.dtype == torch.uint8 and port_blocks._d2h(t) == bytes(buf)
+
+
+def test_rows_payloads_and_payload_rows_invert():
+    rows = torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8], [9, 10, 11, 12]], dtype=torch.uint8)
+    lens = torch.tensor([2, 0, 4], dtype=torch.int32)
+    flat = port_blocks._rows_payloads(rows, lens)
+    assert flat.tolist() == [1, 2, 9, 10, 11, 12]
+    back = port_blocks._payload_rows(flat, lens, 5)
+    assert back.tolist() == [[1, 2, 0, 0, 0], [0] * 5, [9, 10, 11, 12, 0]]
+
+
+def test_batches_give_the_same_container(monkeypatch):
+    assert port_blocks._batch_blocks(torch.device("cpu"), 9, 65537) >= 64
+    data = np.random.default_rng(3).integers(0, 256, 3000, dtype=np.uint8).tobytes()
+    one = port_blocks.compress_container(data, ("arithmetic",), block_size=256, device="cpu")
+    monkeypatch.setattr(
+        port_blocks, "CPU_BATCH_BYTES", 3 * (port_blocks.CPU_BYTES_PER_STEP * 257 + 64)
+    )
+    assert port_blocks._batch_blocks(torch.device("cpu"), 9, 257) == 3
+    many = port_blocks.compress_container(data, ("arithmetic",), block_size=256, device="cpu")
+    assert many == one
+    assert port_blocks.decompress_container(many, device="cpu") == data
+
+
+def test_overflow_flag_reencodes_with_the_oracle(monkeypatch):
+    # the row bound keeps oflow 0; force it for block 1 over a garbled row
+    encode = port_blocks.pipeline.arith_encode_rows
+
+    def flag_block_1(x, lengths):
+        rows, byte_lens, oflow = encode(x, lengths)
+        rows[1] = 0x5A
+        oflow[1] = 1
+        return rows, byte_lens, oflow
+
+    monkeypatch.setattr(port_blocks.pipeline, "arith_encode_rows", flag_block_1)
+    data, jax_c, _ = _containers("ragged_tail", 512)
+    assert port_blocks.compress_container(data, ("arithmetic",), block_size=512, device="cpu") == jax_c
+
+
+def test_overflow_flag_from_the_card_raises():
+    flags = np.array([0, 1, 0, 1], dtype=np.int32)
+    assert port_blocks._flagged_blocks(flags, 8, torch.device("cpu")).tolist() == [1, 3]
+    with pytest.raises(RuntimeError, match="block 9 over the row bound"):
+        port_blocks._flagged_blocks(flags, 8, torch.device("cuda"))
+    assert port_blocks._flagged_blocks(np.zeros(4, np.int32), 0, torch.device("cuda")).size == 0
+
+
+def test_entry_points_record_their_stages():
+    data = random_text(1500, seed=94)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        c = port_blocks.compress_container(data, ("arithmetic",), block_size=512, device="cpu")
+        assert port_blocks.decompress_container(c, device="cpu") == data
+    names = {e.name for e in prof.events() if e.name.startswith("rsnb.")}
+    assert names == {
+        "rsnb.compress", "rsnb.enc.h2d", "rsnb.enc.coder", "rsnb.enc.select", "rsnb.enc.d2h",
+        "rsnb.decompress", "rsnb.dec.h2d", "rsnb.dec.coder", "rsnb.dec.eof_check", "rsnb.dec.d2h",
+    }
+
+
+def test_truncated_container_raises():
+    c = port_blocks.compress_container(b"truncate me " * 50, ("arithmetic",), block_size=256, device="cpu")
+    with pytest.raises(ValueError, match="past the end"):
+        port_blocks.decompress_container(c[:-1], device="cpu")
+
+
+def test_chip_smoke_oracle_blocks_are_the_oracles():
+    import bench
+    import chip_smoke
+
+    data = bench.make_corpus(chip_smoke.MAIN_BYTES)
+    bs = chip_smoke.BLOCK_SIZE
+    payloads = [b""] * (len(data) // bs)
+    for i in chip_smoke.ORACLE_BLOCKS:
+        payloads[i] = arithmetic_ref.compress(data[i * bs : (i + 1) * bs])
+    chip_smoke.check_oracle_blocks(data, payloads)
