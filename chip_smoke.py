@@ -7,21 +7,28 @@ Phases, each printing one line; any failure exits nonzero before the
 result line:
 
 1. require a CUDA card, print its name and power limit (nvidia-smi), build
-   the kernels from raisin_tpu_torch/csrc into raisin_tpu_torch/_build;
-2. each kernel (A encode, B prepad, C decode) against its plain PyTorch
-   version on the card, exactly, on 128 edge-case blocks of <= 2 KiB;
-3. the main path: ``compress_container(data, ("arithmetic",), 65536)`` and
-   ``decompress_container`` of a 64 MiB corpus (bench.make_corpus) with the
-   launch counts reset just before and read just after; the round trip must
-   be exact, every kernel must have launched and four sampled payloads must
-   equal the host oracle's (ORACLE_BLOCKS); timed over TIMED_RUNS round
-   trips; then one more round trip under torch.profiler for the time
-   breakdown (host ms per stage range, device ms per kernel and copy, and
-   the device's busy share of each call);
-4. each kernel at the main path's shapes, timed with CUDA events, beside
+   the kernels from raisin_tpu_torch/csrc into raisin_tpu_torch/_build
+   (one nvcc per source, all started together);
+2. each kernel against its plain PyTorch version on the card, exactly, on
+   128 edge-case blocks of <= 2 KiB: A encode, B prepad, C decode, and, at
+   windows 16 and 4096, D match search, E commit and F token walk; D, E
+   and F also on 24 KiB run-heavy blocks at window 16384 (five-digit
+   tokens) and on a block whose escaped bytes outgrow shared memory;
+3. each main path through the entry points a user calls, on a 64 MiB
+   corpus (bench.make_corpus) at 64 KiB blocks: first
+   ``compress_container(data, ("arithmetic",))``, then the default
+   ``compress_container(data, ("lzss", "arithmetic"), window=4096)``, each
+   with ``decompress_container``. The launch counts are reset just before
+   a path's runs and read after its first; the round trips must be exact,
+   every kernel of the path must have launched and four sampled payloads
+   must equal the host oracle's (ORACLE_BLOCKS, ORACLE_BLOCKS_LZSS); timed
+   over TIMED_RUNS round trips; then one more round trip under
+   torch.profiler for the time breakdown (host ms per stage range, device
+   ms per kernel and copy, and the device's busy share of each call);
+4. each kernel at its main path's shapes, timed with CUDA events, beside
    its plain version at the same shapes, outputs compared exactly (this
-   also holds every block of the main path against the plain version,
-   which the CPU tests hold against the host oracle).
+   also holds every block of the arithmetic main path against the plain
+   version, which the CPU tests hold against the host oracle).
 
 The second-to-last line is the kernel table as JSON, the last line the
 result object. Nothing of JAX is imported.
@@ -31,6 +38,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -52,6 +60,18 @@ ORACLE_BLOCKS = {
     682: ("4ac05729736bf2a137f7a2d3413b2921", 36205, "a2ca2910ff85fa64fc2bca92a7307261"),
     1023: ("63f616a552d407d5841d9c0319a2bc3a", 36199, "754934cc456c9487993e704a402c9da6"),
 }
+# The same for ("lzss", "arithmetic") at window 4096: block index -> (sha256
+# of the input block, token-stream length, payload length, sha256 of the
+# payload of raisin_tpu.formats.arithmetic_ref.compress(lzss_ref.compress(
+# block, 4096))); tests/test_torch_lzss.py recomputes them.
+WINDOW = 4096
+ORACLE_BLOCKS_LZSS = {
+    0: ("9de9388755bcc78e3ceb1a7319b3403d", 44035, 23934, "f2f47a7205d14f1584f9f2ac09f4c23e"),
+    341: ("3be9ca082e2c2bbbcf62566eb1ce58df", 44012, 23925, "60d6e358e5a84e5e0030bd60a67cf545"),
+    682: ("4ac05729736bf2a137f7a2d3413b2921", 44003, 23995, "7c60e15d15a103303f26ee3fa46bfcb7"),
+    1023: ("63f616a552d407d5841d9c0319a2bc3a", 43926, 23782, "01981d0c5856ca297d58e33b5ca28257"),
+}
+LZ = ("lzss", "arithmetic")
 
 KERNELS = {
     "arith_encode": (
@@ -65,6 +85,18 @@ KERNELS = {
     "arith_decode": (
         "raisin_tpu_torch/csrc/arith_decode.cu",
         "raisin_tpu/ops/arithmetic_pallas.py:674",
+    ),
+    "lzss_match": (
+        "raisin_tpu_torch/csrc/lzss_match.cu",
+        "raisin_tpu/ops/lzss_jax.py:51",
+    ),
+    "lzss_commit": (
+        "raisin_tpu_torch/csrc/lzss_commit.cu",
+        "raisin_tpu/ops/lzss_commit_pallas.py:41",
+    ),
+    "lzss_decode": (
+        "raisin_tpu_torch/csrc/lzss_decode.cu",
+        "raisin_tpu/ops/lzss_decode_pallas.py:42",
     ),
 }
 
@@ -97,6 +129,7 @@ def edge_blocks(n_blocks: int = 128, size: int = 2048) -> list[bytes]:
         b"<<<<,,,>>>>" * 8,
         b"\x00" * size,
         bytes(rng.integers(0, 256, size=size, dtype=np.uint8)),
+        bytes(rng.choice(np.array([0x5C, 0xFF], dtype=np.uint8), size=size)),  # escapes to 2x
     ]
     while len(out) < n_blocks:
         n = int(rng.integers(0, size + 1))
@@ -139,6 +172,14 @@ def check_oracle_blocks(data: bytes, payloads: list[bytes]) -> None:
     for i, (in_sha, size, out_sha) in ORACLE_BLOCKS.items():
         check(sha(data[i * BLOCK_SIZE : (i + 1) * BLOCK_SIZE]) == in_sha, f"corpus block {i} is not the one sampled")
         check((len(payloads[i]), sha(payloads[i])) == (size, out_sha), f"block {i} differs from the oracle's payload")
+
+
+def check_oracle_blocks_lzss(data: bytes, payloads: list[bytes], tok_lens: list[int]) -> None:
+    """The sampled lzss,arithmetic blocks equal the host oracle's (ORACLE_BLOCKS_LZSS)."""
+    for i, (in_sha, tok_len, size, out_sha) in ORACLE_BLOCKS_LZSS.items():
+        check(sha(data[i * BLOCK_SIZE : (i + 1) * BLOCK_SIZE]) == in_sha, f"corpus block {i} is not the one sampled")
+        check(tok_lens[i] == tok_len, f"block {i}'s token length differs from the oracle's")
+        check((len(payloads[i]), sha(payloads[i])) == (size, out_sha), f"lzss block {i} differs from the oracle's payload")
 
 
 def max_abs_err(*pairs) -> int:
@@ -188,7 +229,7 @@ def _device_group(name: str) -> str:
     return "torch kernels"
 
 
-def trace_breakdown(data: bytes, dev) -> dict:
+def trace_breakdown(data: bytes, dev, algorithms: tuple[str, ...]) -> dict:
     """Where one compress + decompress through the entry points spends its time.
 
     Runs both under torch.profiler and reads the trace: host milliseconds
@@ -204,7 +245,7 @@ def trace_breakdown(data: bytes, dev) -> dict:
     from raisin_tpu_torch.parallel import blocks
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        c = blocks.compress_container(data, ("arithmetic",), block_size=BLOCK_SIZE, device=dev)
+        c = blocks.compress_container(data, algorithms, block_size=BLOCK_SIZE, window=WINDOW, device=dev)
         back = blocks.decompress_container(c, device=dev)
         torch.cuda.synchronize()
     check(back == data, "traced round trip differs")
@@ -265,81 +306,131 @@ def phase_kernels_vs_plain(ar, dev) -> None:
     print(f"phase kernel C (decode) vs plain: equal on {len(blocks)} blocks, round trip exact", flush=True)
 
 
-def main() -> int:
+def lzss_stages(lz, xe, en, window: int, tag: str):
+    """Kernels D, E and F against their plain versions on escaped blocks.
+
+    Returns (max_abs_err per kernel, the kernel's tokens and lengths).
+    Every launch here is a comparison launch, not a main-path one.
+    """
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
-        return 1
+    match, commit, walk = lz
+    L_k, D_k = match.find_matches(xe, en, window)
+    L_p, D_p = match._find_matches_torch(xe, en, window)
+    torch.cuda.synchronize()
+    err_d = max_abs_err((L_k, L_p), (D_k, D_p))
+    check(err_d == 0, f"kernel D differs from its plain version ({tag}, max abs err {err_d})")
+    tok_k, tl_k = commit.commit_tokens(xe, L_k, D_k, en)
+    tok_p, tl_p = commit._commit_tokens_torch(xe, L_k, D_k, en)
+    torch.cuda.synchronize()
+    err_e = max_abs_err((tok_k, tok_p), (tl_k, tl_p))
+    check(err_e == 0, f"kernel E differs from its plain version ({tag}, max abs err {err_e})")
+    cap_out = 2 * xe.shape[1]
+    rows_k, ol_k, fl_k = walk.walk_tokens(tok_k, tl_k, cap_out)
+    rows_p, ol_p, fl_p = walk._walk_tokens_torch(tok_k, tl_k, cap_out)
+    torch.cuda.synchronize()
+    err_f = max_abs_err((rows_k, rows_p), (ol_k, ol_p), (fl_k, fl_p))
+    check(err_f == 0, f"kernel F differs from its plain version ({tag}, max abs err {err_f})")
+    check(int(fl_k.abs().sum()) == 0 and torch.equal(ol_k, en), f"kernel F faulted ({tag})")
+    width = xe.shape[1]
+    check(torch.equal(rows_k[:, :width], xe) and not rows_k[:, width:].any(),
+          f"kernel F did not restore the escaped blocks ({tag})")
+    return {"lzss_match": err_d, "lzss_commit": err_e, "lzss_decode": err_f}, tok_k, tl_k
 
-    import bench
-    from raisin_tpu_torch.ops import _build
-    from raisin_tpu_torch.ops import arithmetic_rows as ar
-    from raisin_tpu_torch.ops.device import require_cuda
+
+def phase_lzss_vs_plain(dev) -> None:
+    """Phase 2, LZSS: kernels D, E, F equal their plain versions on edge cases."""
+    import torch
+
+    from raisin_tpu_torch.ops import escape, lzss_commit, lzss_decode, lzss_match
+
+    lz = (lzss_match, lzss_commit, lzss_decode)
+    blocks = edge_blocks()
+    m, n = padded(blocks)
+    x, n = torch.from_numpy(m).to(dev), torch.from_numpy(n).to(dev)
+    xe, en = escape.escape_blocks(x, n)
+    check(xe.shape[1] == 2 * x.shape[1], "the escape-heavy edge block did not escape to 2x")
+    for window in (16, WINDOW):
+        lzss_stages(lz, xe, en, window, f"window {window}")
+    flat, dec_lens = escape.unescape_rows(xe, en)
+    check(flat.cpu().numpy().tobytes() == b"".join(blocks), "the escape layer did not round-trip the edge blocks")
+    print(f"phase kernels D (match), E (commit), F (walk) vs plain: equal on {len(blocks)} blocks "
+          f"(escaped to {xe.shape[1]} B) at windows 16 and {WINDOW}, walk restores them, max_abs_err 0",
+          flush=True)
+
+    # five-digit tokens: matches of 10000+ at window 16384
+    size, window = 24 << 10, 16384
+    rng = np.random.default_rng(8)
+    period = bytes(rng.integers(0, 256, size=12000, dtype=np.uint8))
+    big = [b"\x00" * size, (period * 3)[:size], (b"ab" * size)[:size]]
+    m, n = padded(big)
+    xe, en = escape.escape_blocks(torch.from_numpy(m).to(dev), torch.from_numpy(n).to(dev))
+    _, tok, tl = lzss_stages(lz, xe, en, window, f"window {window}")
+    toks = [tok[i, : int(tl[i])].cpu().numpy().tobytes() for i in range(len(big))]
+    five = re.compile(rb"<\d{5},|,\d{5}>")
+    check(all(five.search(t) for t in toks[:2]), "no five-digit token at window 16384")
+    print(f"phase kernels D, E, F vs plain at window {window}: equal on {len(big)} blocks of {size} B "
+          f"with five-digit tokens, max_abs_err 0", flush=True)
+
+    # a block whose escaped bytes outgrow shared memory: kernel D reads device memory
+    verse = b"the quick brown fox jumps over the lazy dog\n" * 1200
+    huge = [b"\xff" * (110 << 10) + verse, verse * 2]
+    m, n = padded(huge)
+    xe, en = escape.escape_blocks(torch.from_numpy(m).to(dev), torch.from_numpy(n).to(dev))
+    check(xe.shape[1] > 211 << 10, "the escaped block fits shared memory after all")
+    lzss_stages(lz, xe, en, WINDOW, f"{xe.shape[1]} B escaped")
+    print(f"phase kernels D, E, F vs plain on {xe.shape[1]} B escaped blocks (past shared memory): "
+          f"equal, max_abs_err 0", flush=True)
+
+
+def phase_main(data: bytes, algorithms: tuple[str, ...], wrappers: dict, reset, card: str, dev):
+    """Phase 3 for one pipeline: timed exact round trips through the entry points.
+
+    Returns (launches of the first run per kernel, the last container).
+    """
+    import torch
+
     from raisin_tpu_torch.parallel import blocks
 
-    # phase 1: the card, and the kernels built from this checkout
-    dev = require_cuda()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    card = f"{smi} (torch {torch.__version__}, CUDA {torch.version.cuda})"
-    print(f"card: {smi}", flush=True)
-    t0 = time.perf_counter()
-    so = _build.build()
-    _build.library()
-    print(f"phase build: {so.relative_to(_build.BUILD_DIR.parent.parent)} in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    def run():
+        return blocks.compress_container(data, algorithms, block_size=BLOCK_SIZE, window=WINDOW, device=dev)
 
-    # phase 2: each kernel against its plain version on edge cases
-    phase_kernels_vs_plain(ar, dev)
-
-    # phase 3: the main path through the entry points a user calls
-    data = bench.make_corpus(MAIN_BYTES)
-    c = blocks.compress_container(data, ("arithmetic",), block_size=BLOCK_SIZE, device="cuda")
-    check(blocks.decompress_container(c, device="cuda") == data, "warm-up round trip differs")
-    ar.reset_launch_counts()
+    check(blocks.decompress_container(run(), device=dev) == data, f"{algorithms} warm-up round trip differs")
+    reset()
     torch.cuda.synchronize()
     t_enc, t_dec = [], []
     for rep in range(TIMED_RUNS):
         t0 = time.perf_counter()
-        c = blocks.compress_container(data, ("arithmetic",), block_size=BLOCK_SIZE, device="cuda")
+        c = run()
         torch.cuda.synchronize()
         t_enc.append(time.perf_counter() - t0)
         t0 = time.perf_counter()
-        back = blocks.decompress_container(c, device="cuda")
+        back = blocks.decompress_container(c, device=dev)
         torch.cuda.synchronize()
         t_dec.append(time.perf_counter() - t0)
-        check(back == data, f"main path round trip {rep} differs")
+        check(back == data, f"{algorithms} main path round trip {rep} differs")
         if rep == 0:
-            launches = {
-                "arith_encode": ar.encode_bits.launches,
-                "arith_prepad": ar.prepad_rows.launches,
-                "arith_decode": ar.decode_rows.launches,
-            }
+            launches = {name: fn.launches for name, fn in wrappers.items()}
     for name, n in launches.items():
-        check(n > 0, f"main path never launched {name}")
-    _, _, _, payloads, _, _ = blocks.parse_container(c)
-    check_oracle_blocks(data, payloads)
+        check(n > 0, f"the {algorithms} main path never launched {name}")
     mb = len(data) / 1e6
     enc_mbs = sorted(mb / t for t in t_enc)
     dec_mbs = sorted(mb / t for t in t_dec)
     print(
-        f"phase main path: {len(data)} B in {BLOCK_SIZE} B blocks round trip exact {TIMED_RUNS} times, "
-        f"blocks {sorted(ORACLE_BLOCKS)} equal to the oracle; over {TIMED_RUNS} runs "
+        f"phase main path {','.join(algorithms)}: {len(data)} B in {BLOCK_SIZE} B blocks (window {WINDOW}) "
+        f"round trip exact {TIMED_RUNS} times; over {TIMED_RUNS} runs "
         f"encode MB/s median {np.median(enc_mbs):.3f} (min {enc_mbs[0]:.3f}, max {enc_mbs[-1]:.3f}), "
         f"decode MB/s median {np.median(dec_mbs):.3f} (min {dec_mbs[0]:.3f}, max {dec_mbs[-1]:.3f}), "
         f"ratio {len(c) / len(data) * 100:.4f}%, launches of the first run {launches}; card {card}",
         flush=True,
     )
-    trace = trace_breakdown(data, dev)
-    if not trace["device_ms"]:
-        print("phase trace: the profiler recorded no device activity; device times not measured", flush=True)
-    print("phase trace (ms, one compress + decompress under torch.profiler): "
-          + json.dumps(trace), flush=True)
+    return launches, c
 
-    # phase 4: kernels at the main path's shapes, beside their plain versions
+
+def phase_timing_arith(ar, blocks, data: bytes, payloads: list[bytes], dev) -> dict:
+    """Phase 4, arithmetic: kernels A, B, C at the main path's shapes beside their plain versions."""
+    import torch
+
     symbols, lengths = batch(*padded([data[i : i + BLOCK_SIZE] for i in range(0, len(data), BLOCK_SIZE)]), dev)
     capw = ar.capw_bound(symbols.shape[1])
     out_lens = lengths
@@ -381,7 +472,111 @@ def main() -> int:
     torch.cuda.synchronize()
     plain_c = (time.perf_counter() - t0) * 1e3
     results["arith_decode"] = (max_abs_err((syms_k, syms_p), (eof_k, eof_p)), ms_c, plain_c)
+    return results
 
+
+def phase_timing_lzss(data: bytes, tok_lens: list[int], dev) -> dict:
+    """Phase 4, LZSS: kernels D, E, F at the main path's shapes beside their plain versions."""
+    import torch
+
+    from raisin_tpu_torch.ops import escape, lzss_commit, lzss_decode, lzss_match
+
+    m, n = padded([data[i : i + BLOCK_SIZE] for i in range(0, len(data), BLOCK_SIZE)])
+    xe, en = escape.escape_blocks(torch.from_numpy(m).to(dev), torch.from_numpy(n).to(dev))
+    results = {}
+
+    def plain_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    ms_d = cuda_ms(lambda: lzss_match.find_matches(xe, en, WINDOW), 3)
+    L_k, D_k = lzss_match.find_matches(xe, en, WINDOW)
+    (L_p, D_p), plain_d = plain_ms(lambda: lzss_match._find_matches_torch(xe, en, WINDOW))
+    results["lzss_match"] = (max_abs_err((L_k, L_p), (D_k, D_p)), ms_d, plain_d)
+    del L_p, D_p
+
+    ms_e = cuda_ms(lambda: lzss_commit.commit_tokens(xe, L_k, D_k, en), 3)
+    tok_k, tl_k = lzss_commit.commit_tokens(xe, L_k, D_k, en)
+    (tok_p, tl_p), plain_e = plain_ms(lambda: lzss_commit._commit_tokens_torch(xe, L_k, D_k, en))
+    results["lzss_commit"] = (max_abs_err((tok_k, tok_p), (tl_k, tl_p)), ms_e, plain_e)
+    check(tl_k.cpu().tolist() == list(tok_lens), "kernel E's token lengths differ from the main path's aux table")
+    del L_k, D_k, tok_p
+
+    steps = int(tl_k.max()) + 1
+    tok = torch.nn.functional.pad(tok_k[:, : steps - 1], (0, 1)).contiguous()
+    cap_out = 2 * BLOCK_SIZE
+    ms_f = cuda_ms(lambda: lzss_decode.walk_tokens(tok, tl_k, cap_out), 3)
+    rows_k, ol_k, fl_k = lzss_decode.walk_tokens(tok, tl_k, cap_out)
+    (rows_p, ol_p, fl_p), plain_f = plain_ms(lambda: lzss_decode._walk_tokens_torch(tok, tl_k, cap_out))
+    results["lzss_decode"] = (max_abs_err((rows_k, rows_p), (ol_k, ol_p), (fl_k, fl_p)), ms_f, plain_f)
+    check(torch.equal(rows_k[:, : xe.shape[1]], xe) and torch.equal(ol_k, en), "kernel F did not restore the main path's blocks")
+    return results
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+        return 1
+
+    import bench
+    from raisin_tpu_torch.ops import _build, lzss_commit, lzss_decode, lzss_match
+    from raisin_tpu_torch.ops import arithmetic_rows as ar
+    from raisin_tpu_torch.ops.device import require_cuda
+    from raisin_tpu_torch.parallel import blocks
+
+    arith = {"arith_encode": ar.encode_bits, "arith_prepad": ar.prepad_rows, "arith_decode": ar.decode_rows}
+    wrappers = {**arith, "lzss_match": lzss_match.find_matches,
+                "lzss_commit": lzss_commit.commit_tokens, "lzss_decode": lzss_decode.walk_tokens}
+
+    def reset():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    # phase 1: the card, and the kernels built from this checkout
+    dev = require_cuda()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    card = f"{smi} (torch {torch.__version__}, CUDA {torch.version.cuda})"
+    print(f"card: {smi}", flush=True)
+    t0 = time.perf_counter()
+    so = _build.build()
+    _build.library()
+    print(f"phase build: {so.relative_to(_build.BUILD_DIR.parent.parent)} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # phase 2: each kernel against its plain version on edge cases
+    phase_kernels_vs_plain(ar, dev)
+    phase_lzss_vs_plain(dev)
+
+    # phase 3: the main paths through the entry points a user calls
+    data = bench.make_corpus(MAIN_BYTES)
+    launches_arith, c = phase_main(data, ("arithmetic",), arith, reset, card, dev)
+    _, _, _, payloads, _, _ = blocks.parse_container(c)
+    check_oracle_blocks(data, payloads)
+    traces = {"arithmetic": trace_breakdown(data, dev, ("arithmetic",))}
+    launches, c = phase_main(data, LZ, wrappers, reset, card, dev)
+    _, _, _, lz_payloads, aux, _ = blocks.parse_container(c)
+    check_oracle_blocks_lzss(data, lz_payloads, aux[0])
+    print(f"phase oracle blocks: arithmetic {sorted(ORACLE_BLOCKS)} and lzss,arithmetic "
+          f"{sorted(ORACLE_BLOCKS_LZSS)} equal to the host oracle's payloads", flush=True)
+    traces["lzss,arithmetic"] = trace_breakdown(data, dev, LZ)
+    for name, trace in traces.items():
+        if not trace["device_ms"]:
+            print(f"phase trace {name}: the profiler recorded no device activity; device times not measured",
+                  flush=True)
+        print(f"phase trace {name} (ms, one compress + decompress under torch.profiler): "
+              + json.dumps(trace), flush=True)
+
+    # phase 4: kernels at the main paths' shapes, beside their plain versions
+    results = phase_timing_arith(ar, blocks, data, payloads, dev)
+    results.update(phase_timing_lzss(data, aux[0], dev))
     for name, (err, ms, plain_ms) in results.items():
         check(err == 0, f"{name} differs from its plain version at the main path's shapes (err {err})")
         print(f"phase timing {name}: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, max_abs_err {err}", flush=True)
@@ -389,6 +584,7 @@ def main() -> int:
     check("jax" not in sys.modules, "jax was imported")
     check("raisin_tpu" not in sys.modules, "the JAX package was imported")
 
+    # launches: the count of the default lzss,arithmetic main path's first run
     table = {
         "kernels": [
             {
@@ -404,6 +600,7 @@ def main() -> int:
             for name in KERNELS
         ]
     }
+    print(f"launches on the arithmetic main path's first run: {launches_arith}", flush=True)
     print(smi)  # as nvidia-smi gives it: name, power limit
     print(json.dumps(table))
     print(json.dumps({

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (route: nvcc -> .so -> ctypes).
 
 The pattern follows raisin_tpu/native/__init__.py: a hash of the sources,
-the nvcc flags and ``nvcc --version`` names the library, it is built on first use and loaded with ctypes. The
+the nvcc flags and ``nvcc --version`` names the library, it is built on first use (one nvcc
+process per source, in parallel, then a link) and loaded with ctypes. The
 sources are ``raisin_tpu_torch/csrc/*.cu`` (plus their ``*.cuh``); the
 library lands in ``raisin_tpu_torch/_build/``. Nothing here runs at import
 time, and a failed build raises: no caller falls back to a plain version.
@@ -36,6 +37,9 @@ SIGNATURES = {
     "rsn_arith_encode": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "rsn_arith_prepad": [_P, _P, _P, _P, _I, _I, _P],
     "rsn_arith_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "rsn_lzss_match": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "rsn_lzss_commit": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "rsn_lzss_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 
@@ -69,19 +73,42 @@ def library_name(nvcc_version: str) -> str:
 
 
 def build() -> Path:
-    """Compile the kernels if no library of this name exists yet."""
+    """Compile the kernels if no library of this name exists yet.
+
+    Each source compiles in its own nvcc process, all started together;
+    one more nvcc call links the objects into the library.
+    """
     nvcc = _nvcc()
     version = subprocess.run([nvcc, "--version"], capture_output=True, text=True, check=True).stdout
     so_path = BUILD_DIR / library_name(version)
     if so_path.exists():
         return so_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(s) for s in sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise KernelBuildError(f"nvcc failed ({' '.join(cmd)}):\n{proc.stderr}")
-    os.replace(tmp, so_path)
+    tag = f"{so_path.stem}.{os.getpid()}"
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *compile_flags, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for cmd, _, proc in jobs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({' '.join(cmd)}):\n{err}")
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise KernelBuildError("\n".join(failed))
+        tmp = so_path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(o) for o in objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise KernelBuildError(f"nvcc failed ({' '.join(cmd)}):\n{proc.stderr}")
+        os.replace(tmp, so_path)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return so_path
 
 

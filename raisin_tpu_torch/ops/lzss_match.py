@@ -1,0 +1,96 @@
+"""LZSS match search: the port of raisin_tpu/ops/lzss_jax.py:find_matches_blocks.
+
+:func:`find_matches` gives, for every position i of every escaped block,
+the greedy longest match of the reference encoder (lzss.go:119-130, oracle
+raisin_tpu/formats/lzss_ref.py:find_matches):
+
+- L[i] is the longest run ``x[i:i+L] == x[i-D:i-D+L]`` over distances
+  D in 1..window with ``i - D >= 0``, capped so that ``L <= D`` (the match
+  lies wholly before i);
+- D[i] is the largest distance that reaches L (the leftmost occurrence,
+  bytes.Index semantics);
+- positions with no match, and positions at or past ``lengths[b]``, get
+  (0, 0); runs stop at ``lengths[b]``.
+
+For every distance the capped run obeys ``c[i] = eq(i) ? min(c[i+1] + 1, d)
+: 0`` walking positions downwards; that is how kernel D
+(csrc/lzss_match.cu) computes it, one lane per distance. The plain version
+:func:`_find_matches_torch` is the transpose: it loops over distances and,
+for all positions at once, takes the forward run from a reverse cumulative
+minimum of the next mismatch, then ``min(run, d)``. Both pick the best
+distance with a max over the packed key ``(c << 16) | d``, so distances
+and lengths up to 65535 fit; the JAX package packs 14 bits and caps the
+window at 8191.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from raisin_tpu_torch.ops import _build
+from raisin_tpu_torch.ops.arithmetic_rows import _check_cuda
+
+MAX_WINDOW = 65535  # the packed key holds d and the capped run in 16 bits each
+
+
+def check_window(window: int) -> None:
+    if not 1 <= window <= MAX_WINDOW:
+        raise ValueError(
+            f"LZSS window {window} outside 1..{MAX_WINDOW}; larger windows come with "
+            f"ROADMAP Queue 1 item 16 (windows past 65535)"
+        )
+
+
+def _find_matches_torch(x: torch.Tensor, lengths: torch.Tensor, window: int):
+    """Plain version of kernel D: (L, D), each (B, S) int32."""
+    B, S = x.shape
+    dev = x.device
+    n = lengths.to(torch.int64)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)
+    best = torch.zeros((B, S), dtype=torch.int64, device=dev)
+    for d in range(1, min(window, S - 1) + 1):
+        # eq at positions i in [d, S): x[i] == x[i - d] and i < n
+        j = pos[: S - d]  # i - d
+        eq = (x[:, d:] == x[:, :-d]) & (pos[None, d:] < n[:, None])
+        # forward run: distance to the next mismatch (S - d past the end)
+        miss = torch.where(eq, S - d, j[None, :])
+        run = miss.flip(1).cummin(1).values.flip(1) - j[None, :]
+        c = run.clamp(max=d).to(torch.int64)
+        key = torch.where(c > 0, (c << 16) | d, 0)
+        best[:, d:] = torch.maximum(best[:, d:], key)
+    return (best >> 16).to(torch.int32), (best & 0xFFFF).to(torch.int32)
+
+
+def find_matches(x: torch.Tensor, lengths: torch.Tensor, window: int):
+    """Per-position greedy longest match (kernel D, or its plain version).
+
+    Args:
+      x: (B, S) uint8 escaped block bytes (what lies past ``lengths`` is
+        ignored).
+      lengths: (B,) int32, each <= S.
+      window: search window, 1..65535.
+
+    Returns (L, D): (B, S) int32 each.
+    """
+    check_window(window)
+    if x.device.type == "cpu":
+        return _find_matches_torch(x, lengths, window)
+    B, S = _check_cuda("find_matches", x, torch.uint8, 2)
+    _check_cuda("find_matches", lengths, torch.int32, 1, (B,), x.device)
+    dev = x.device
+    L = torch.empty((B, S), dtype=torch.int32, device=dev)
+    D = torch.empty((B, S), dtype=torch.int32, device=dev)
+    if B == 0 or S == 0:
+        return L, D
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        find_matches.launches += 1
+        rc = lib.rsn_lzss_match(
+            x.data_ptr(), lengths.data_ptr(), L.data_ptr(), D.data_ptr(),
+            B, S, window, _build.stream_handle(dev),
+        )
+    _build.check("rsn_lzss_match", rc)
+    return L, D
+
+
+find_matches.launches = 0

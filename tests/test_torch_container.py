@@ -2,8 +2,9 @@
 
 ``raisin_tpu_torch.parallel`` on the CPU runs the plain PyTorch versions of
 its kernels; ``raisin_tpu.parallel`` runs on CPU JAX. For the
-``("arithmetic",)`` pipeline the two must write identical containers and
-each must decode the other's (tolerance 0: the outputs are bytes).
+``("arithmetic",)`` and ``("lzss", "arithmetic")`` pipelines the two must
+write identical containers and each must decode the other's (tolerance 0:
+the outputs are bytes).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from raisin_tpu.formats import arithmetic_ref
+from raisin_tpu.formats import arithmetic_ref, lzss_ref
 from raisin_tpu.parallel import blocks as jax_blocks
 from raisin_tpu_torch.parallel import blocks as port_blocks
 from tests.fixtures import random_bytes, random_text
@@ -81,7 +82,7 @@ def test_framing_matches_jax():
     ) == jax_blocks.assemble_container(payloads, aux_tables, ("lzss", "arithmetic"), bs, 2048, orig)
 
 
-@pytest.mark.parametrize("algorithms", [("lzss", "arithmetic"), ("huffman",), ("gzip",)])
+@pytest.mark.parametrize("algorithms", [("lzss",), ("huffman",), ("gzip",)])
 def test_unported_pipelines_name_their_roadmap_item(algorithms):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         port_blocks.compress_container(b"abc" * 100, algorithms, block_size=512, device="cpu")
@@ -119,6 +120,9 @@ def test_port_runs_without_jax():
         "d = bytes(range(256)) * 16\n"
         "c = b.compress_container(d, ('arithmetic',), block_size=1024, device='cpu')\n"
         "assert b.decompress_container(c, device='cpu') == d\n"
+        "e = b'<lzss \\\\ round trip \\xff> ' * 200\n"
+        "c = b.compress_container(e, ('lzss', 'arithmetic'), block_size=1024, window=512, device='cpu')\n"
+        "assert b.decompress_container(c, device='cpu') == e\n"
         "leaked = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'raisin_tpu.')))\n"
         "assert not leaked and 'raisin_tpu' not in sys.modules, leaked\n"
         "print('ok', len(c))\n"
@@ -232,3 +236,159 @@ def test_chip_smoke_oracle_blocks_are_the_oracles():
     for i in chip_smoke.ORACLE_BLOCKS:
         payloads[i] = arithmetic_ref.compress(data[i * bs : (i + 1) * bs])
     chip_smoke.check_oracle_blocks(data, payloads)
+
+
+# ---------------------------------------------------------------------------
+# ("lzss", "arithmetic"), the default pipeline
+
+LZ = ("lzss", "arithmetic")
+LZ_INPUTS = {
+    "text": lambda bs: random_text(bs + bs // 2, seed=95),
+    "binary": lambda bs: random_bytes(bs + bs // 2, seed=96),
+    "escape_heavy": lambda bs: (b"<<\\\\\xff,<\\x>>\xff\xff" * bs)[: bs + bs // 2],
+    "zeros": lambda bs: b"\x00" * (bs + bs // 2),
+    "ragged_tail": lambda bs: random_text(2 * bs + 77, seed=97),
+    "empty": lambda bs: b"",
+    "one_block": lambda bs: random_text(bs, seed=98),
+}
+# every input at the default window; the other windows on the inputs that
+# reach them (JAX compiles each shape and window once, which sets the cost)
+LZ_CASES = [(name, bs, 4096) for name in LZ_INPUTS for bs in (512, 4096)] + [
+    (name, 4096, window) for name in ("text", "escape_heavy") for window in (2048, 8191)
+]
+
+
+@functools.cache
+def _lz_containers(name: str, bs: int, window: int):
+    """(data, JAX container, port container) for one lzss,arithmetic case."""
+    data = LZ_INPUTS[name](bs)
+    jax_c = jax_blocks.compress_container(data, LZ, block_size=bs, window=window)
+    port_c = port_blocks.compress_container(data, LZ, block_size=bs, window=window, device="cpu")
+    return data, jax_c, port_c
+
+
+@pytest.mark.parametrize("name, bs, window", LZ_CASES)
+def test_port_lzss_container_equals_jax(name, bs, window):
+    data, jax_c, port_c = _lz_containers(name, bs, window)
+    assert port_c == jax_c
+    algorithms, _, orig, payloads, aux, got_window = port_blocks.parse_container(port_c)
+    assert (algorithms, orig, got_window) == (LZ, len(data), window)
+    blocks = [data[i : i + bs] for i in range(0, len(data), bs)] or [b""]
+    assert aux == [[len(lzss_ref.compress(b, window)) for b in blocks]]
+    if bs == 512:  # the pure-Python arithmetic oracle, where it is quick
+        assert payloads == [arithmetic_ref.compress(lzss_ref.compress(b, window)) for b in blocks]
+
+
+@pytest.mark.parametrize("name, bs, window", LZ_CASES)
+def test_port_decodes_jax_lzss_container(name, bs, window):
+    data, jax_c, _ = _lz_containers(name, bs, window)
+    assert port_blocks.decompress_container(jax_c, device="cpu") == data
+
+
+@pytest.mark.parametrize("name, bs, window", LZ_CASES)
+def test_jax_decodes_port_lzss_container(name, bs, window):
+    data, _, port_c = _lz_containers(name, bs, window)
+    assert jax_blocks.decompress_container(port_c) == data
+
+
+def test_default_pipeline_is_lzss_arithmetic():
+    data = random_text(700, seed=99)
+    c = port_blocks.compress_container(data, block_size=512, device="cpu")
+    assert c == port_blocks.compress_container(data, LZ, block_size=512, window=4096, device="cpu")
+    assert port_blocks.parse_container(c)[0] == LZ
+
+
+@pytest.mark.parametrize("window", [0, 65536])
+def test_lzss_window_outside_the_card_range_raises(window):
+    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 16"):
+        port_blocks.compress_container(b"abc" * 10, LZ, block_size=16, window=window, device="cpu")
+
+
+def test_lzss_five_digit_window_round_trips_through_the_oracle():
+    # zeros reach a match at distance 12000 at window 12000: a five-digit token
+    data = b"\x00" * 21000 + random_text(500, seed=100)
+    c = port_blocks.compress_container(data, LZ, block_size=1 << 16, window=12000, device="cpu")
+    _, _, _, payloads, aux, _ = port_blocks.parse_container(c)
+    tokens = lzss_ref.compress(data, 12000)
+    assert b"<12000," in tokens and aux == [[len(tokens)]]
+    assert payloads == [arithmetic_ref.compress(tokens)]
+    assert port_blocks.decompress_container(c, device="cpu") == data
+    assert jax_blocks.decompress_container(c) == data
+
+
+def test_lzss_container_without_aux_names_its_roadmap_item():
+    data = b"no aux table " * 20
+    payload = arithmetic_ref.compress(lzss_ref.compress(data, 4096))
+    c = port_blocks.assemble_container([payload], [], LZ, 4096, 4096, len(data))
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 17"):
+        port_blocks.decompress_container(c, device="cpu")
+
+
+def test_lzss_missing_eof_raises_like_jax():
+    # the aux table says 3 token bytes, but the stream goes on past them
+    tok = lzss_ref.compress(b"abcdefgh", 4096)
+    c = port_blocks.assemble_container([arithmetic_ref.compress(tok)], [[3]], LZ, 8, 4096, 8)
+    for decode in (jax_blocks.decompress_container, port_blocks.decompress_container):
+        with pytest.raises(ValueError, match="block 0 missing EOF"):
+            decode(c)
+
+
+def test_lzss_decoded_length_check_raises_like_jax():
+    # block 1's tokens decode to 3 bytes where the header expects 4; the
+    # port checks each block, as the JAX package's device path does
+    # (_dec_tail), and its CPU path the whole output
+    toks = [lzss_ref.compress(b"abcd", 4096), lzss_ref.compress(b"efg", 4096)]
+    c = port_blocks.assemble_container(
+        [arithmetic_ref.compress(t) for t in toks], [[len(t) for t in toks]], LZ, 4, 4096, 8
+    )
+    with pytest.raises(ValueError, match="decoded 7 bytes, expected 8"):
+        jax_blocks.decompress_container(c)
+    with pytest.raises(ValueError, match="block 1 decoded 3 bytes, expected 4"):
+        port_blocks.decompress_container(c, device="cpu")
+
+
+def test_lzss_reference_outside_the_output_raises():
+    tok = b"ab<5,2>"
+    c = port_blocks.assemble_container([arithmetic_ref.compress(tok)], [[len(tok)]], LZ, 4, 4096, 4)
+    with pytest.raises(ValueError, match="reference outside decoded window"):
+        lzss_ref.decompress(tok)
+    with pytest.raises(ValueError, match="block 0: reference outside decoded window"):
+        port_blocks.decompress_container(c, device="cpu")
+
+
+def test_lzss_entry_points_record_their_stages():
+    data = random_text(600, seed=101)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        c = port_blocks.compress_container(data, LZ, block_size=256, window=64, device="cpu")
+        assert port_blocks.decompress_container(c, device="cpu") == data
+    names = {e.name for e in prof.events() if e.name.startswith("rsnb.")}
+    assert names == {
+        "rsnb.compress", "rsnb.enc.h2d", "rsnb.enc.escape", "rsnb.enc.match", "rsnb.enc.commit",
+        "rsnb.enc.coder", "rsnb.enc.select", "rsnb.enc.d2h",
+        "rsnb.decompress", "rsnb.dec.h2d", "rsnb.dec.coder", "rsnb.dec.eof_check", "rsnb.dec.walk",
+        "rsnb.dec.unescape", "rsnb.dec.d2h",
+    }
+
+
+def test_lzss_batches_give_the_same_container(monkeypatch):
+    data = random_text(3000, seed=102)
+    one = port_blocks.compress_container(data, LZ, block_size=256, device="cpu")
+    monkeypatch.setattr(port_blocks, "CPU_BATCH_BYTES", 3 * (port_blocks.CPU_BYTES_PER_STEP * 257 + 64))
+    many = port_blocks.compress_container(data, LZ, block_size=256, device="cpu")
+    assert many == one
+    assert port_blocks.decompress_container(many, device="cpu") == data
+
+
+def test_lzss_overflow_flag_reencodes_with_the_oracle(monkeypatch):
+    # as for ("arithmetic",): force oflow for block 1 of the token streams' rows
+    encode = port_blocks.pipeline.arith_encode_rows
+
+    def flag_block_1(x, lengths):
+        rows, byte_lens, oflow = encode(x, lengths)
+        rows[1] = 0x5A
+        oflow[1] = 1
+        return rows, byte_lens, oflow
+
+    monkeypatch.setattr(port_blocks.pipeline, "arith_encode_rows", flag_block_1)
+    data, jax_c, _ = _lz_containers("ragged_tail", 512, 4096)
+    assert port_blocks.compress_container(data, LZ, block_size=512, window=4096, device="cpu") == jax_c
