@@ -13,22 +13,36 @@ result line:
    128 edge-case blocks of <= 2 KiB: A encode, B prepad, C decode, and, at
    windows 16 and 4096, D match search, E commit and F token walk; D, E
    and F also on 24 KiB run-heavy blocks at window 16384 (five-digit
-   tokens) and on a block whose escaped bytes outgrow shared memory;
+   tokens) and on a block whose escaped bytes outgrow shared memory; G
+   Huffman encode and H Huffman decode on the ASCII edge blocks, a block
+   whose longest code has 21 bits, a single-symbol block and kernel E's
+   token streams at windows 16 and 4096, while the non-ASCII edge blocks
+   take the host split, are counted and equal the port's copy of the
+   oracle;
 3. each main path through the entry points a user calls, on a 64 MiB
    corpus (bench.make_corpus) at 64 KiB blocks: first
    ``compress_container(data, ("arithmetic",))``, then the default
-   ``compress_container(data, ("lzss", "arithmetic"), window=4096)``, each
-   with ``decompress_container``. The launch counts are reset just before
-   a path's runs and read after its first; the round trips must be exact,
-   every kernel of the path must have launched and four sampled payloads
-   must equal the host oracle's (ORACLE_BLOCKS, ORACLE_BLOCKS_LZSS); timed
+   ``compress_container(data, ("lzss", "arithmetic"), window=4096)``, then
+   ``("lzss", "huffman")`` at window 4096, each with
+   ``decompress_container``. The launch counts are reset just before a
+   path's runs and read after its first; the round trips must be exact,
+   every kernel of the path must have launched, no lzss,huffman block may
+   take the host split, and four sampled payloads must equal the host
+   oracle's (ORACLE_BLOCKS, ORACLE_BLOCKS_LZSS, ORACLE_BLOCKS_HUFF); timed
    over TIMED_RUNS round trips; then one more round trip under
    torch.profiler for the time breakdown (host ms per stage range, device
-   ms per kernel and copy, and the device's busy share of each call);
+   ms per kernel and copy, and the device's busy share of each call).
+   ``("huffman",)`` and ``("lzss",)`` round-trip the same 64 MiB the same
+   way, without the trace;
 4. each kernel at its main path's shapes, timed with CUDA events, beside
    its plain version at the same shapes, outputs compared exactly (this
    also holds every block of the arithmetic main path against the plain
-   version, which the CPU tests hold against the host oracle).
+   version, which the CPU tests hold against the host oracle), with the
+   least time the card could take for the same work (``bound_ms``: the
+   larger of the bytes it must move over the H100 SXM's 3.35 TB/s and
+   the integer operations that the function needs on these inputs, by
+   the least-work method known for it, over the card's INT32 issue rate,
+   PEAK_INT_OPS_PER_S).
 
 The second-to-last line is the kernel table as JSON, the last line the
 result object. Nothing of JAX is imported.
@@ -72,6 +86,23 @@ ORACLE_BLOCKS_LZSS = {
     1023: ("63f616a552d407d5841d9c0319a2bc3a", 43926, 23782, "01981d0c5856ca297d58e33b5ca28257"),
 }
 LZ = ("lzss", "arithmetic")
+# The same for ("lzss", "huffman") at window 4096: block index -> (sha256 of
+# the input block, token-stream length, payload length, sha256 of the
+# payload of raisin_tpu.formats.huffman_ref.compress(lzss_ref.compress(
+# block, 4096))); tests/test_torch_huffman_container.py recomputes them.
+ORACLE_BLOCKS_HUFF = {
+    0: ("9de9388755bcc78e3ceb1a7319b3403d", 44035, 24027, "329d93bf4d7db38169e707683e78181c"),
+    341: ("3be9ca082e2c2bbbcf62566eb1ce58df", 44012, 24002, "6a60e9a1b3ce9adb90be9537a456cc9a"),
+    682: ("4ac05729736bf2a137f7a2d3413b2921", 44003, 24085, "a03371ed0db63cb7f7b036cff869448b"),
+    1023: ("63f616a552d407d5841d9c0319a2bc3a", 43926, 23864, "713c5178e361512c98a2d8696ae829f2"),
+}
+LZ_HUFF = ("lzss", "huffman")
+# the card's peaks for bound_ms: the H100 SXM data sheet's memory rate, and
+# its INT32 issue rate: 132 SMs x 64 INT32 lanes (Hopper architecture) at the
+# 1.98 GHz that the data sheet's 67 TFLOP/s float32 implies (132 SMs x 128
+# lanes x 2 operations an FMA); a quarter of that float32 figure
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_INT_OPS_PER_S = 132 * 64 * 1.98e9
 
 KERNELS = {
     "arith_encode": (
@@ -97,6 +128,14 @@ KERNELS = {
     "lzss_decode": (
         "raisin_tpu_torch/csrc/lzss_decode.cu",
         "raisin_tpu/ops/lzss_decode_pallas.py:42",
+    ),
+    "huffman_encode": (
+        "raisin_tpu_torch/csrc/huffman_encode.cu",
+        "raisin_tpu/ops/huffman_pallas.py:63",
+    ),
+    "huffman_decode": (
+        "raisin_tpu_torch/csrc/huffman_decode.cu",
+        "raisin_tpu/ops/huffman_pallas.py:211",
     ),
 }
 
@@ -182,6 +221,20 @@ def check_oracle_blocks_lzss(data: bytes, payloads: list[bytes], tok_lens: list[
         check((len(payloads[i]), sha(payloads[i])) == (size, out_sha), f"lzss block {i} differs from the oracle's payload")
 
 
+def check_oracle_blocks_huff(data: bytes, payloads: list[bytes], tok_lens: list[int]) -> None:
+    """The sampled lzss,huffman blocks equal the host oracle's (ORACLE_BLOCKS_HUFF)."""
+    for i, (in_sha, tok_len, size, out_sha) in ORACLE_BLOCKS_HUFF.items():
+        check(sha(data[i * BLOCK_SIZE : (i + 1) * BLOCK_SIZE]) == in_sha, f"corpus block {i} is not the one sampled")
+        check(tok_lens[i] == tok_len, f"block {i}'s token length differs from the oracle's")
+        check((len(payloads[i]), sha(payloads[i])) == (size, out_sha), f"huffman block {i} differs from the oracle's payload")
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """(least ms the card could take, what sets it): bytes over the memory rate or operations over the peak."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_INT_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
 def max_abs_err(*pairs) -> int:
     """Largest |a - b| over the pairs (0 when the outputs are identical)."""
     import torch
@@ -207,6 +260,17 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def plain_ms(fn):
+    """(result, milliseconds) of one call of a plain version, host clock around a synchronize."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
 
 
 def _union_ms(intervals: list[tuple[float, float]]) -> float:
@@ -383,6 +447,131 @@ def phase_lzss_vs_plain(dev) -> None:
           f"equal, max_abs_err 0", flush=True)
 
 
+def child_tables(counts: np.ndarray) -> np.ndarray:
+    """Kernel H's (B, 64) child tables for blocks of these symbol counts (zero for a single symbol)."""
+    from raisin_tpu_torch.formats import huffman as hf
+    from raisin_tpu_torch.ops import huffman_blocks as hb
+    from raisin_tpu_torch.ops import huffman_rows as hr
+
+    tables = np.zeros((len(counts), hr.NTAB), dtype=np.int32)
+    for b, row in enumerate(counts):
+        syms = np.nonzero(row)[0]
+        if syms.size > 1:
+            tables[b] = hb.packed_table(hf.build_tree(dict(zip(syms.tolist(), row[syms].tolist()))))
+    return tables
+
+
+def huffman_stages(x, n, tag: str) -> dict:
+    """Kernels G and H against their plain versions on blocks of ASCII bytes.
+
+    The code tables come as the container makes them (counts on the card,
+    trees on the host); H walks G's rows back, and every block of two or
+    more symbols must decode to itself. Returns max_abs_err per kernel.
+    Every launch here is a comparison launch, not a main-path one.
+    """
+    import torch
+
+    from raisin_tpu_torch.ops import huffman_blocks as hb
+    from raisin_tpu_torch.ops import huffman_rows as hr
+
+    dev = x.device
+    counts = hb.count_symbols(x, n)
+    codes, code_lens, _, on_host = hb.code_tables(counts)
+    check(not on_host.any(), f"a {tag} block is not ASCII")
+    want = ((counts[:, : hr.NSYM] * code_lens).sum(1) + 7) // 8
+    capw = max(1, (int(want.max()) + 3) // 4)
+    codes_t = torch.from_numpy(codes.view(np.int32)).to(dev)
+    lens_t = torch.from_numpy(code_lens).to(dev)
+    rows_k, bl_k, pad_k = hr.encode_rows(x, n, codes_t, lens_t, capw)
+    rows_p, bl_p, pad_p = hr._encode_rows_torch(x, n, codes_t, lens_t, capw)
+    torch.cuda.synchronize()
+    err_g = max_abs_err((rows_k, rows_p), (bl_k, bl_p), (pad_k, pad_p))
+    check(err_g == 0, f"kernel G differs from its plain version ({tag}, max abs err {err_g})")
+    check(bl_k.cpu().numpy().tolist() == want.tolist(), f"kernel G's payload lengths differ from the code tables' ({tag})")
+
+    multi = (counts > 0).sum(1) > 1  # a single-symbol block has no bits to walk
+    tables_t = torch.from_numpy(child_tables(counts)).to(dev)
+    width = int(n.max())
+    cap_out = -(-width // 4) * 4
+    out_k, cnt_k, ok_k = hr.decode_rows(rows_k, pad_k, bl_k, tables_t, cap_out)
+    out_p, cnt_p, ok_p = hr._decode_rows_torch(rows_k, pad_k, bl_k, tables_t, cap_out)
+    torch.cuda.synchronize()
+    err_h = max_abs_err((out_k, out_p), (cnt_k, cnt_p), (ok_k, ok_p))
+    check(err_h == 0, f"kernel H differs from its plain version ({tag}, max abs err {err_h})")
+    m = torch.from_numpy(multi).to(dev)
+    check(bool(ok_k.all()) and torch.equal(cnt_k[m], n[m]), f"kernel H did not end every walk at the root ({tag})")
+    check(torch.equal(out_k[m][:, :width], x[m][:, :width]), f"kernel H did not restore the blocks ({tag})")
+    return {"huffman_encode": err_g, "huffman_decode": err_h}
+
+
+def fibonacci_block(symbols: int = 22) -> bytes:
+    """A shuffled block whose symbol counts are Fibonacci numbers: its longest code has symbols - 1 bits."""
+    fib = [1, 1]
+    while len(fib) < symbols:
+        fib.append(fib[-1] + fib[-2])
+    block = np.repeat(np.arange(65, 65 + symbols, dtype=np.uint8), fib)
+    np.random.default_rng(9).shuffle(block)
+    return block.tobytes()
+
+
+def phase_huffman_vs_plain(dev) -> None:
+    """Phase 2, Huffman: kernels G, H equal their plain versions on edge cases."""
+    import torch
+
+    from raisin_tpu_torch.formats import huffman as hf
+    from raisin_tpu_torch.ops import escape, huffman_blocks, lzss_commit, lzss_match
+
+    edge = [b for b in edge_blocks() if b]
+    ascii_blocks = [b for b in edge if max(b) < 0x80]
+    fib = fibonacci_block()
+    longest = max(len(c) for c in hf.print_codes(hf.build_tree({s: fib.count(s) for s in set(fib)}))[1])
+    check(longest >= 20, f"the Fibonacci block's longest code has {longest} bits")
+    blocks = ascii_blocks + [fib, b"s" * 1000]
+    m, n = padded(blocks)
+    x, n = torch.from_numpy(m).to(dev), torch.from_numpy(n).to(dev)
+    huffman_stages(x, n, "edge blocks")
+    print(f"phase kernels G (huffman encode), H (huffman decode) vs plain: equal on {len(ascii_blocks)} ASCII "
+          f"edge blocks, a block with a {longest}-bit code and a single-symbol block, H restores them, "
+          f"max_abs_err 0", flush=True)
+
+    m, n = padded(ascii_blocks)
+    xe, en = escape.escape_blocks(torch.from_numpy(m).to(dev), torch.from_numpy(n).to(dev))
+    for window in (16, WINDOW):
+        L, D = lzss_match.find_matches(xe, en, window)
+        tok, tl = lzss_commit.commit_tokens(xe, L, D, en)
+        cols = torch.arange(tok.shape[1], device=dev)[None, :]
+        clean = ~((tok >= 0x80) & (cols < tl[:, None])).any(1)  # '<' escapes to 0xFF
+        huffman_stages(tok[clean].contiguous(), tl[clean].contiguous(), f"tokens at window {window}")
+        print(f"phase kernels G, H vs plain on kernel E's token streams at window {window}: equal on "
+              f"{int(clean.sum())} ASCII streams, max_abs_err 0", flush=True)
+
+    # the whole edge set through the container's Huffman layer: the
+    # non-ASCII blocks take the host split and are counted
+    m, n = padded(edge)
+    huffman_blocks.reset_host_split()
+    flat, sizes = huffman_blocks.encode_blocks(torch.from_numpy(m).to(dev), torch.from_numpy(n).to(dev))
+    body = flat.cpu().numpy().tobytes()
+    nonascii = len(edge) - len(ascii_blocks)
+    check(huffman_blocks.host_split["encode"] == nonascii, "the non-ASCII edge blocks did not all take the host split")
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    check(all(body[a : a + k] == hf.compress(b) for a, k, b in zip(starts, sizes, edge)),
+          "a Huffman edge payload differs from the port's copy of the oracle")
+    # decode the blocks of two or more symbols (one symbol has a zero-length code, which the oracle refuses)
+    keep = [i for i, b in enumerate(edge) if len(set(b)) > 1]
+    payloads = [body[starts[i] : starts[i] + sizes[i]] for i in keep]
+    body = b"".join(payloads)
+    sizes = np.array([len(p) for p in payloads], dtype=np.int64)
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    flat = torch.from_numpy(np.frombuffer(body, np.uint8).copy()).to(dev)
+    rows, counts, host = huffman_blocks.decode_blocks(flat, body, starts, sizes, max(map(len, edge)))
+    rows_np = rows.cpu().numpy()
+    check(sorted(host) == [k for k, i in enumerate(keep) if max(edge[i]) >= 0x80]
+          and all(rows_np[k, : counts[k]].tobytes() == edge[i] for k, i in enumerate(keep) if k not in host),
+          "the Huffman layer did not decode the edge blocks")
+    print(f"phase huffman layer: {len(edge)} edge blocks equal the port's copy of the oracle; "
+          f"{nonascii} non-ASCII blocks took the host split (counted, not compared with a kernel)", flush=True)
+
+
 def phase_main(data: bytes, algorithms: tuple[str, ...], wrappers: dict, reset, card: str, dev):
     """Phase 3 for one pipeline: timed exact round trips through the entry points.
 
@@ -427,6 +616,19 @@ def phase_main(data: bytes, algorithms: tuple[str, ...], wrappers: dict, reset, 
     return launches, c
 
 
+def _result(err: int, ms: float, plain: float, nbytes: float, ops: float) -> dict:
+    bound_ms, bound_by = bound(nbytes, ops)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _coder_ops(steps: float, bits: float, num_cum: int) -> float:
+    """Least integer operations of an adaptive arithmetic coder: per step a
+    search and an update of a cumulative-frequency (Fenwick) tree of
+    ``num_cum`` entries, ceil(log2) operations each, and ~6 of coder
+    arithmetic (range, two multiply-divides, the new low); one a stream bit."""
+    return (2 * int(np.ceil(np.log2(num_cum))) + 6) * steps + bits
+
+
 def phase_timing_arith(ar, blocks, data: bytes, payloads: list[bytes], dev) -> dict:
     """Phase 4, arithmetic: kernels A, B, C at the main path's shapes beside their plain versions."""
     import torch
@@ -435,25 +637,26 @@ def phase_timing_arith(ar, blocks, data: bytes, payloads: list[bytes], dev) -> d
     capw = ar.capw_bound(symbols.shape[1])
     out_lens = lengths
     steps = symbols.shape[1]
+    B = symbols.shape[0]
+    coded = float((lengths.to(torch.int64) + 1).sum())  # coder steps, EOF included
     results = {}
 
     ms_a = cuda_ms(lambda: ar.encode_bits(symbols, lengths, capw), 3)
     raw_k, bits_k, of_k = ar.encode_bits(symbols, lengths, capw)
     check(int(of_k.max()) == 0, "kernel A flagged an overflow at the main path's shapes")
-    t0 = time.perf_counter()
-    raw_p, bits_p, of_p = ar._encode_bits_torch(symbols, lengths, capw)
-    torch.cuda.synchronize()
-    plain_a = (time.perf_counter() - t0) * 1e3
-    results["arith_encode"] = (max_abs_err((raw_k, raw_p), (bits_k, bits_p), (of_k, of_p)), ms_a, plain_a)
+    (raw_p, bits_p, of_p), plain_a = plain_ms(lambda: ar._encode_bits_torch(symbols, lengths, capw))
+    stream = float(((bits_k.to(torch.int64) + 7) // 8).sum())
+    # symbols in, bits out
+    results["arith_encode"] = _result(max_abs_err((raw_k, raw_p), (bits_k, bits_p), (of_k, of_p)), ms_a, plain_a,
+                                      4 * coded + stream + 12 * B, _coder_ops(coded, 8 * stream, ar.NUM_CUM))
     del raw_k
 
     ms_b = cuda_ms(lambda: ar.prepad_rows(raw_p, bits_p), 10)
     rows_k, bl_k = ar.prepad_rows(raw_p, bits_p)
-    t0 = time.perf_counter()
-    rows_p, bl_p = ar._prepad_torch(raw_p, bits_p)
-    torch.cuda.synchronize()
-    plain_b = (time.perf_counter() - t0) * 1e3
-    results["arith_prepad"] = (max_abs_err((rows_k, rows_p), (bl_k, bl_p)), ms_b, plain_b)
+    (rows_p, bl_p), plain_b = plain_ms(lambda: ar._prepad_torch(raw_p, bits_p))
+    out_bytes = float(bl_p.to(torch.int64).sum())
+    results["arith_prepad"] = _result(max_abs_err((rows_k, rows_p), (bl_k, bl_p)), ms_b, plain_b,
+                                      stream + out_bytes + 8 * B, 6 * out_bytes / 4)
     del raw_p, rows_k
 
     # the main path's payloads are the plain version's rows, block for block
@@ -467,11 +670,10 @@ def phase_timing_arith(ar, blocks, data: bytes, payloads: list[bytes], dev) -> d
                                  blens, int(blens.max()) + 1)
     ms_c = cuda_ms(lambda: ar.decode_rows(prows, blens, out_lens, steps), 3)
     syms_k, eof_k = ar.decode_rows(prows, blens, out_lens, steps)
-    t0 = time.perf_counter()
-    syms_p, eof_p = ar._decode_rows_torch(prows, blens, out_lens, steps)
-    torch.cuda.synchronize()
-    plain_c = (time.perf_counter() - t0) * 1e3
-    results["arith_decode"] = (max_abs_err((syms_k, syms_p), (eof_k, eof_p)), ms_c, plain_c)
+    (syms_p, eof_p), plain_c = plain_ms(lambda: ar._decode_rows_torch(prows, blens, out_lens, steps))
+    # payload in, bytes out
+    results["arith_decode"] = _result(max_abs_err((syms_k, syms_p), (eof_k, eof_p)), ms_c, plain_c,
+                                      out_bytes + coded - B + 4 * B, _coder_ops(coded, 8 * out_bytes, ar.NUM_CUM))
     return results
 
 
@@ -483,25 +685,24 @@ def phase_timing_lzss(data: bytes, tok_lens: list[int], dev) -> dict:
 
     m, n = padded([data[i : i + BLOCK_SIZE] for i in range(0, len(data), BLOCK_SIZE)])
     xe, en = escape.escape_blocks(torch.from_numpy(m).to(dev), torch.from_numpy(n).to(dev))
+    esc = float(en.to(torch.int64).sum())
     results = {}
-
-    def plain_ms(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
 
     ms_d = cuda_ms(lambda: lzss_match.find_matches(xe, en, WINDOW), 3)
     L_k, D_k = lzss_match.find_matches(xe, en, WINDOW)
     (L_p, D_p), plain_d = plain_ms(lambda: lzss_match._find_matches_torch(xe, en, WINDOW))
-    results["lzss_match"] = (max_abs_err((L_k, L_p), (D_k, D_p)), ms_d, plain_d)
+    # bytes in, (L, D) out; a binary-tree match finder (LZMA's bt4) visits ~log2(window) nodes a
+    # position, where D (and the JAX scan) try every distance
+    results["lzss_match"] = _result(max_abs_err((L_k, L_p), (D_k, D_p)), ms_d, plain_d,
+                                    9 * esc, int(np.ceil(np.log2(WINDOW))) * esc)
     del L_p, D_p
 
     ms_e = cuda_ms(lambda: lzss_commit.commit_tokens(xe, L_k, D_k, en), 3)
     tok_k, tl_k = lzss_commit.commit_tokens(xe, L_k, D_k, en)
     (tok_p, tl_p), plain_e = plain_ms(lambda: lzss_commit._commit_tokens_torch(xe, L_k, D_k, en))
-    results["lzss_commit"] = (max_abs_err((tok_k, tok_p), (tl_k, tl_p)), ms_e, plain_e)
+    toks = float(tl_k.to(torch.int64).sum())
+    results["lzss_commit"] = _result(max_abs_err((tok_k, tok_p), (tl_k, tl_p)), ms_e, plain_e,
+                                     9 * esc + toks, 4 * esc)
     check(tl_k.cpu().tolist() == list(tok_lens), "kernel E's token lengths differ from the main path's aux table")
     del L_k, D_k, tok_p
 
@@ -511,8 +712,62 @@ def phase_timing_lzss(data: bytes, tok_lens: list[int], dev) -> dict:
     ms_f = cuda_ms(lambda: lzss_decode.walk_tokens(tok, tl_k, cap_out), 3)
     rows_k, ol_k, fl_k = lzss_decode.walk_tokens(tok, tl_k, cap_out)
     (rows_p, ol_p, fl_p), plain_f = plain_ms(lambda: lzss_decode._walk_tokens_torch(tok, tl_k, cap_out))
-    results["lzss_decode"] = (max_abs_err((rows_k, rows_p), (ol_k, ol_p), (fl_k, fl_p)), ms_f, plain_f)
+    results["lzss_decode"] = _result(max_abs_err((rows_k, rows_p), (ol_k, ol_p), (fl_k, fl_p)), ms_f, plain_f,
+                                     toks + esc, 2 * toks)
     check(torch.equal(rows_k[:, : xe.shape[1]], xe) and torch.equal(ol_k, en), "kernel F did not restore the main path's blocks")
+    return results
+
+
+def phase_timing_huffman(data: bytes, tok_lens: list[int], dev) -> dict:
+    """Phase 4, Huffman: kernels G, H at the lzss,huffman main path's shapes beside their plain versions.
+
+    The inputs are the main path's: kernel E's token streams of the corpus
+    at window 4096 and the code tables the container builds for them.
+    """
+    import torch
+
+    from raisin_tpu_torch.ops import escape, huffman_blocks, huffman_rows, lzss_commit, lzss_match
+
+    m, n = padded([data[i : i + BLOCK_SIZE] for i in range(0, len(data), BLOCK_SIZE)])
+    xe, en = escape.escape_blocks(torch.from_numpy(m).to(dev), torch.from_numpy(n).to(dev))
+    L, D = lzss_match.find_matches(xe, en, WINDOW)
+    tok, tl = lzss_commit.commit_tokens(xe, L, D, en)
+    del L, D
+    check(tl.cpu().tolist() == list(tok_lens), "kernel E's token lengths differ from the lzss,huffman aux table")
+    counts = huffman_blocks.count_symbols(tok, tl)
+    codes, code_lens, _, on_host = huffman_blocks.code_tables(counts)
+    check(not on_host.any(), "a main-path token stream is not ASCII")
+    want = ((counts[:, : huffman_rows.NSYM] * code_lens).sum(1) + 7) // 8
+    capw = max(1, (int(want.max()) + 3) // 4)
+    codes_t = torch.from_numpy(codes.view(np.int32)).to(dev)
+    lens_t = torch.from_numpy(code_lens).to(dev)
+    B = tok.shape[0]
+    toks = float(tl.to(torch.int64).sum())
+    payload = float(want.sum())
+    results = {}
+
+    ms_g = cuda_ms(lambda: huffman_rows.encode_rows(tok, tl, codes_t, lens_t, capw), 5)
+    rows_k, bl_k, pad_k = huffman_rows.encode_rows(tok, tl, codes_t, lens_t, capw)
+    (rows_p, bl_p, pad_p), plain_g = plain_ms(lambda: huffman_rows._encode_rows_torch(tok, tl, codes_t, lens_t, capw))
+    # tokens and tables in, payload out; per symbol a code load, a scan add, a shift and an OR
+    results["huffman_encode"] = _result(max_abs_err((rows_k, rows_p), (bl_k, bl_p), (pad_k, pad_p)), ms_g, plain_g,
+                                        toks + 8 * huffman_rows.NSYM * B + payload + 8 * B, 4 * toks)
+    check(bl_k.cpu().numpy().tolist() == want.tolist(), "kernel G's payload lengths differ from the code tables'")
+    del rows_p
+
+    tables_t = torch.from_numpy(child_tables(counts)).to(dev)
+    cap_out = -(-int(tl.max()) // 4) * 4
+    ms_h = cuda_ms(lambda: huffman_rows.decode_rows(rows_k, pad_k, bl_k, tables_t, cap_out), 3)
+    out_k, cnt_k, ok_k = huffman_rows.decode_rows(rows_k, pad_k, bl_k, tables_t, cap_out)
+    (out_p, cnt_p, ok_p), plain_h = plain_ms(
+        lambda: huffman_rows._decode_rows_torch(rows_k, pad_k, bl_k, tables_t, cap_out))
+    # payload and tables in, tokens out; a table-driven decode takes a symbol a step: a peek of the
+    # next bits, a table load, a shift, a store (building a 4096-entry table a block adds ~0.1%)
+    results["huffman_decode"] = _result(max_abs_err((out_k, out_p), (cnt_k, cnt_p), (ok_k, ok_p)), ms_h, plain_h,
+                                        payload + 4 * huffman_rows.NTAB * B + toks + 8 * B, 4 * toks)
+    check(bool(ok_k.all()) and torch.equal(cnt_k, tl), "kernel H did not end every walk at the root")
+    check(torch.equal(out_k[:, :cap_out], torch.nn.functional.pad(tok, (0, max(0, cap_out - tok.shape[1])))[:, :cap_out]),
+          "kernel H did not restore the main path's token streams")
     return results
 
 
@@ -524,17 +779,19 @@ def main() -> int:
         return 1
 
     import bench
-    from raisin_tpu_torch.ops import _build, lzss_commit, lzss_decode, lzss_match
+    from raisin_tpu_torch.ops import _build, huffman_blocks, huffman_rows, lzss_commit, lzss_decode, lzss_match
     from raisin_tpu_torch.ops import arithmetic_rows as ar
     from raisin_tpu_torch.ops.device import require_cuda
     from raisin_tpu_torch.parallel import blocks
 
     arith = {"arith_encode": ar.encode_bits, "arith_prepad": ar.prepad_rows, "arith_decode": ar.decode_rows}
-    wrappers = {**arith, "lzss_match": lzss_match.find_matches,
-                "lzss_commit": lzss_commit.commit_tokens, "lzss_decode": lzss_decode.walk_tokens}
+    lz = {"lzss_match": lzss_match.find_matches, "lzss_commit": lzss_commit.commit_tokens,
+          "lzss_decode": lzss_decode.walk_tokens}
+    huff = {"huffman_encode": huffman_rows.encode_rows, "huffman_decode": huffman_rows.decode_rows}
+    every = {**arith, **lz, **huff}
 
     def reset():
-        for fn in wrappers.values():
+        for fn in every.values():
             fn.launches = 0
 
     # phase 1: the card, and the kernels built from this checkout
@@ -554,6 +811,7 @@ def main() -> int:
     # phase 2: each kernel against its plain version on edge cases
     phase_kernels_vs_plain(ar, dev)
     phase_lzss_vs_plain(dev)
+    phase_huffman_vs_plain(dev)
 
     # phase 3: the main paths through the entry points a user calls
     data = bench.make_corpus(MAIN_BYTES)
@@ -561,30 +819,43 @@ def main() -> int:
     _, _, _, payloads, _, _ = blocks.parse_container(c)
     check_oracle_blocks(data, payloads)
     traces = {"arithmetic": trace_breakdown(data, dev, ("arithmetic",))}
-    launches, c = phase_main(data, LZ, wrappers, reset, card, dev)
+    launches, c = phase_main(data, LZ, {**arith, **lz}, reset, card, dev)
     _, _, _, lz_payloads, aux, _ = blocks.parse_container(c)
     check_oracle_blocks_lzss(data, lz_payloads, aux[0])
-    print(f"phase oracle blocks: arithmetic {sorted(ORACLE_BLOCKS)} and lzss,arithmetic "
-          f"{sorted(ORACLE_BLOCKS_LZSS)} equal to the host oracle's payloads", flush=True)
     traces["lzss,arithmetic"] = trace_breakdown(data, dev, LZ)
+    huffman_blocks.reset_host_split()
+    launches_huff, c = phase_main(data, LZ_HUFF, {**lz, **huff}, reset, card, dev)
+    split = dict(huffman_blocks.host_split)
+    check(split == {"encode": 0, "decode": 0}, f"lzss,huffman blocks took the host split: {split}")
+    _, _, _, lh_payloads, lh_aux, _ = blocks.parse_container(c)
+    check_oracle_blocks_huff(data, lh_payloads, lh_aux[0])
+    print(f"phase oracle blocks: arithmetic {sorted(ORACLE_BLOCKS)}, lzss,arithmetic {sorted(ORACLE_BLOCKS_LZSS)} "
+          f"and lzss,huffman {sorted(ORACLE_BLOCKS_HUFF)} equal to the host oracle's payloads; "
+          f"lzss,huffman blocks on the host split: {split}", flush=True)
+    traces["lzss,huffman"] = trace_breakdown(data, dev, LZ_HUFF)
     for name, trace in traces.items():
         if not trace["device_ms"]:
             print(f"phase trace {name}: the profiler recorded no device activity; device times not measured",
                   flush=True)
         print(f"phase trace {name} (ms, one compress + decompress under torch.profiler): "
               + json.dumps(trace), flush=True)
+    phase_main(data, ("huffman",), huff, reset, card, dev)
+    phase_main(data, ("lzss",), lz, reset, card, dev)
 
     # phase 4: kernels at the main paths' shapes, beside their plain versions
     results = phase_timing_arith(ar, blocks, data, payloads, dev)
     results.update(phase_timing_lzss(data, aux[0], dev))
-    for name, (err, ms, plain_ms) in results.items():
-        check(err == 0, f"{name} differs from its plain version at the main path's shapes (err {err})")
-        print(f"phase timing {name}: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, max_abs_err {err}", flush=True)
+    results.update(phase_timing_huffman(data, lh_aux[0], dev))
+    for name, r in results.items():
+        check(r["max_abs_err"] == 0, f"{name} differs from its plain version at the main path's shapes (err {r['max_abs_err']})")
+        print(f"phase timing {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.1f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err {r['max_abs_err']}", flush=True)
 
     check("jax" not in sys.modules, "jax was imported")
     check("raisin_tpu" not in sys.modules, "the JAX package was imported")
 
-    # launches: the count of the default lzss,arithmetic main path's first run
+    # launches: A-F from the default lzss,arithmetic main path's first run, G and H from lzss,huffman's
+    launches.update({name: launches_huff[name] for name in huff})
     table = {
         "kernels": [
             {
@@ -593,14 +864,14 @@ def main() -> int:
                 "source": KERNELS[name][0],
                 "replaces": KERNELS[name][1],
                 "launches": launches[name],
-                "max_abs_err": results[name][0],
-                "ms": results[name][1],
-                "plain_ms": results[name][2],
+                **results[name],
+                "library_ms": None,  # no single PyTorch call computes any of these functions
             }
             for name in KERNELS
         ]
     }
-    print(f"launches on the arithmetic main path's first run: {launches_arith}", flush=True)
+    print(f"launches on the arithmetic main path's first run: {launches_arith}; "
+          f"on the lzss,huffman main path's first run: {launches_huff}", flush=True)
     print(smi)  # as nvidia-smi gives it: name, power limit
     print(json.dumps(table))
     print(json.dumps({

@@ -1,24 +1,30 @@
 """RSNB block container on PyTorch: the port of raisin_tpu/parallel/blocks.py.
 
-The port covers two pipelines: the default ``("lzss", "arithmetic")`` and the
-pure ``("arithmetic",)``, encode and decode. Each block is an exact
-single-stream `.rsn` payload of its pipeline, and an lzss,arithmetic
-container carries the aux table of per-block token-stream lengths, so
-every container this module writes at an LZSS window up to 8191 is
-byte-identical to the JAX package's, and each package reads the other's.
-(Above 8191 the JAX package encodes on the host and writes no aux table;
-the port writes one at any window up to 65535, with the same payloads.)
+The port covers five pipelines, encode and decode: the default
+``("lzss", "arithmetic")``, ``("arithmetic",)``, ``("lzss",)``,
+``("huffman",)`` and ``("lzss", "huffman")``. Each block is an exact
+single-stream `.rsn` payload of its pipeline, and the ``lzss,arithmetic``
+and ``lzss,huffman`` containers carry the aux table of per-block
+token-stream lengths, so every container this module writes at an LZSS
+window up to 8191 is byte-identical to the JAX package's, and each package
+reads the other's. (Above 8191 the JAX package encodes ``lzss`` and
+``lzss,arithmetic`` on the host and writes no aux table for the latter;
+the port stays on the card at any window up to 65535, with the same
+payloads, and writes one.)
 
 The JAX package's TPU limits do not carry over: there is no 128-lane block
 padding, no VMEM batch cap, no 64 KiB payload or escaped-block gate and no
 native-C fallback; the batch size comes from the card's free memory (all
 1024 blocks of a 64 MiB input at 64 KiB blocks fit one launch on an 80 GB
-card).
+card). The LZSS decodes (``lzss``, ``lzss,huffman``) walk their tokens on
+the card with kernel F, where the JAX package walks them on the host.
 
 The host handles the input and the payloads as whole buffers, never as one
 Python object per block: the card reads the input and the container's
 body straight from the Python bytes, cuts and pads the blocks itself, and
-the container or the decoded output comes back in one copy.
+the container or the decoded output comes back in one copy. The Huffman
+pipelines add per-block host work on small tables only: the tree, the
+code table and the header (``ops/huffman_blocks.py``).
 
 Each stage runs inside a ``torch.profiler.record_function`` range
 (``rsnb.compress`` / ``rsnb.decompress`` around a whole call,
@@ -44,47 +50,51 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
-from raisin_tpu_torch.ops import arithmetic_rows, escape, lzss_decode, lzss_match, pipeline
+from raisin_tpu_torch.ops import arithmetic_rows, escape, huffman_blocks, lzss_decode, lzss_match, pipeline
 from raisin_tpu_torch.ops.device import resolve_device
 
 MAGIC = b"RSNB"
 VERSION = 2  # v2 adds the LZSS window u32 (v1 files parse as window=4096)
 DEFAULT_BLOCK_SIZE = 1 << 16
 
-# Device bytes per block and coder step of one batch: encode holds the
-# uint8 input and its padded copies, the int32 cast and symbols, the raw
-# words and the rows (<= 2 bytes a step each); decode holds the body, the
-# payload rows, the decoded bytes, a mask over each and the selection. A
-# batch takes at most a quarter of the card's free memory.
-CUDA_ENC_BYTES_PER_STEP = 3 + 4 + 4 + 2 + 2
-CUDA_DEC_BYTES_PER_STEP = 6
-# The same per input byte for lzss,arithmetic, where escaping can double a
-# block: encode holds the input and its padded copy (2), the escaped bytes
-# (2) and the escape's offsets (24, escape-heavy input only), L and D (16),
-# the tokens (2), their coder symbols (8) and raw words and rows (8);
-# decode holds the body and payload rows (2), the tokens (2), the walked
-# rows (2) and the escape decode's index arrays and masks (32).
-CUDA_LZ_ENC_BYTES_PER_STEP = 2 + 2 + 24 + 16 + 2 + 8 + 8
-CUDA_LZ_DEC_BYTES_PER_STEP = 2 + 2 + 2 + 32
+ARITH, LZ_ARITH, LZ, HUFF, LZ_HUFF = (
+    ("arithmetic",), ("lzss", "arithmetic"), ("lzss",), ("huffman",), ("lzss", "huffman"),
+)
+PIPELINES = (LZ_ARITH, ARITH, LZ, HUFF, LZ_HUFF)
+WITH_AUX = (LZ_ARITH, LZ_HUFF)  # the containers that carry the token lengths
+
+# Device bytes per block byte of one batch, (encode, decode), by pipeline.
+# arithmetic: the uint8 input and its padded copies, the int32 cast and
+# symbols, the raw words and the rows (<= 2 bytes a step each); decode the
+# body, the payload rows, the decoded bytes, a mask over each and the
+# selection. lzss (escaping can double a block): encode holds the input
+# and its padded copy (2), the escaped bytes (2) and the escape's offsets
+# (24, escape-heavy input only), L and D (16), the tokens (2), their coder
+# symbols (8) and raw words and rows (8); decode the body and payload rows
+# (2), the tokens (2), the walked rows (2) and the escape decode's index
+# arrays and masks (32). huffman: encode the input, the int32 bin keys
+# and their masked copy (8), the rows and the framed rows with their mask
+# (3); decode the body, the int64 gather index (8), the payload rows, the
+# decoded rows and the selection. A batch takes at most a quarter of the
+# card's free memory.
+CUDA_BYTES_PER_STEP = {
+    ARITH: (3 + 4 + 4 + 2 + 2, 6),
+    LZ_ARITH: (2 + 2 + 24 + 16 + 2 + 8 + 8, 2 + 2 + 2 + 32),
+    LZ: (2 + 2 + 24 + 16 + 2 + 2, 2 + 2 + 2 + 32),
+    HUFF: (1 + 8 + 3 + 2, 1 + 8 + 1 + 1 + 2),
+    LZ_HUFF: (2 + 2 + 24 + 16 + 2 + 8 + 3 + 2, 1 + 8 + 1 + 2 + 2 + 32),
+}
 CUDA_MEMORY_SHARE = 4
-# The plain CPU versions keep a bit matrix and a run array per block
-# (about 16 + 64 bytes a step for encode, 8 * 8 * 3 for decode); their
+# The plain CPU versions keep bit matrices and run arrays per block; their
 # batches stay under 1 GiB.
 CPU_BATCH_BYTES = 1 << 30
 CPU_BYTES_PER_STEP = 200
 
-_ROADMAP_NEXT = {
-    ("lzss",): "ROADMAP Queue 1 item 10 (LZSS-only container)",
-    ("huffman",): "ROADMAP Queue 1 item 11 (Huffman containers)",
-    ("lzss", "huffman"): "ROADMAP Queue 1 item 11 (Huffman containers)",
-}
-
 
 def _not_ported(algorithms: tuple[str, ...]) -> NotImplementedError:
-    item = _ROADMAP_NEXT.get(algorithms, "ROADMAP Queue 1 item 14 (the rest: host pipelines)")
     return NotImplementedError(
-        f"raisin_tpu_torch runs the ('lzss', 'arithmetic') and ('arithmetic',) containers so far; "
-        f"{algorithms!r} comes with {item}"
+        f"raisin_tpu_torch runs the {', '.join(map(repr, PIPELINES))} containers so far; "
+        f"{algorithms!r} comes with ROADMAP Queue 1 item 14 (the rest: host pipelines)"
     )
 
 
@@ -141,20 +151,60 @@ def _payload_rows(flat: torch.Tensor, lens: torch.Tensor, width: int) -> torch.T
     return rows
 
 
+def _encode_batch(x, n, algorithms, window: int, first_block: int):
+    """Encode one batch of blocks -> (concatenated payloads on the device, sizes, token lengths or None)."""
+    if algorithms[0] == "lzss":
+        with record_function("rsnb.enc.escape"):
+            x, n = escape.escape_blocks(x, n)
+    if algorithms == HUFF:
+        return (*huffman_blocks.encode_blocks(x, n, first_block), None)
+    if algorithms == LZ_HUFF:
+        tok, tok_len = pipeline.lzss_tokens(x, n, window)
+        return (*huffman_blocks.encode_blocks(tok, tok_len, first_block), tok_len.cpu().numpy().astype(np.int64))
+    if algorithms == LZ:
+        tok, tok_len = pipeline.lzss_tokens(x, n, window)
+        with record_function("rsnb.enc.select"):
+            return _rows_payloads(tok, tok_len), tok_len.cpu().numpy(), None
+    tok_len = None
+    if algorithms == ARITH:
+        with record_function("rsnb.enc.coder"):
+            # one column more for EOF after a full block
+            rows, byte_lens, oflow = pipeline.arith_encode_rows(F.pad(x, (0, 1)), n)
+    else:
+        rows, byte_lens, tok_len, oflow = pipeline.lzss_arith_encode_rows(x, n, window)
+    with record_function("rsnb.enc.select"):
+        body = _rows_payloads(rows, byte_lens)
+        _check_no_overflow(oflow.cpu().numpy(), first_block)
+        return body, byte_lens.cpu().numpy(), None if tok_len is None else tok_len.cpu().numpy()
+
+
+def _check_no_overflow(oflow: np.ndarray, first_block: int) -> None:
+    """Raise if a block's arithmetic stream overflowed its row.
+
+    Rows are sized by :func:`arithmetic_rows.capw_bound`, which every stream
+    fits, and the plain versions share the bound, so a flag on any device
+    means the coder is wrong: that raises rather than moving the block's
+    work to the host.
+    """
+    flagged = np.nonzero(oflow)[0]
+    if flagged.size:
+        raise RuntimeError(
+            f"the arithmetic coder flagged block {first_block + flagged[0]} over the row bound, "
+            f"which every stream fits"
+        )
+
+
 def _encode_rows(
-    data: bytes, block_size: int, device: torch.device, window: int | None = None
+    data: bytes, block_size: int, device: torch.device, algorithms: tuple[str, ...], window: int
 ) -> tuple[np.ndarray, torch.Tensor, np.ndarray | None]:
     """Encode every block -> (payload sizes, concatenated payloads on ``device``, token lengths).
 
-    ``window=None`` is the ``("arithmetic",)`` pipeline (token lengths
-    None); a window is ``("lzss", "arithmetic")`` (the counterpart of the
-    JAX package's ``_encode_lzss_arith_rows`` and ``_enc_batch_assemble``),
-    whose token-stream lengths become the container's aux table.
+    The token lengths (None for pipelines without an aux table) become the
+    container's aux table.
     """
     W, lengths = _block_lengths(len(data), block_size)
     B = len(lengths)
-    per_step = CUDA_ENC_BYTES_PER_STEP if window is None else CUDA_LZ_ENC_BYTES_PER_STEP
-    maxb = _batch_blocks(device, per_step, W + 1)
+    maxb = _batch_blocks(device, CUDA_BYTES_PER_STEP[algorithms][0], W + 1)
     view = memoryview(data)
     sizes, bodies, toks = [], [], []
     for lo in range(0, B, maxb):
@@ -164,109 +214,136 @@ def _encode_rows(
             # zeros past the ragged end
             x = F.pad(x, (0, (hi - lo) * W - x.numel())).view(hi - lo, W)
             n = torch.from_numpy(lengths[lo:hi]).to(device)
-        if window is None:
-            with record_function("rsnb.enc.coder"):
-                # one column more for EOF after a full block
-                rows, byte_lens, oflow = pipeline.arith_encode_rows(F.pad(x, (0, 1)), n)
-        else:
-            with record_function("rsnb.enc.escape"):
-                x, n = escape.escape_blocks(x, n)
-            rows, byte_lens, tok_len, oflow = pipeline.lzss_arith_encode_rows(x, n, window)
-        with record_function("rsnb.enc.select"):
-            body = _rows_payloads(rows, byte_lens)
-            got = byte_lens.cpu().numpy()
-            if window is not None:
-                toks.append(tok_len.cpu().numpy())
-            flagged = _flagged_blocks(oflow.cpu().numpy(), lo, device)
-        if flagged.size:
-            # CPU only: the oracle re-encodes a flagged block, as the JAX
-            # package does (blocks.py:372-381, 577-581)
-            from raisin_tpu.formats import arithmetic_ref, lzss_ref
-
-            payloads = _split(_d2h(body), got)
-            for i in flagged:
-                start = (lo + i) * W
-                block = data[start : start + lengths[lo + i]]
-                payloads[i] = arithmetic_ref.compress(
-                    block if window is None else lzss_ref.compress(block, window)
-                )
-            got = np.array([len(p) for p in payloads], dtype=np.int64)
-            body = _h2d(b"".join(payloads), device)
+        body, got, tok = _encode_batch(x, n, algorithms, window, lo)
         sizes.append(got)
         bodies.append(body)
+        if tok is not None:
+            toks.append(tok)
     return np.concatenate(sizes), torch.cat(bodies), np.concatenate(toks) if toks else None
 
 
-def _flagged_blocks(oflow: np.ndarray, first_block: int, device: torch.device) -> np.ndarray:
-    """Indices of the blocks whose stream overflowed its row.
+def _lzss_tail(tok: torch.Tensor, tok_len: torch.Tensor, out_lens: np.ndarray, first_block: int) -> bytes:
+    """Kernel F walks B token streams, then the escape decode; -> the blocks' bytes.
 
-    Rows are sized by :func:`arithmetic_rows.capw_bound`, which every stream
-    fits, so a flag from the card means kernel A is wrong: that raises
-    rather than moving the block's work to the host.
+    The walk's rows hold ``2 * max(out_lens)`` bytes (escaping at most
+    doubles a block); each block's decoded length must equal ``out_lens``.
     """
-    flagged = np.nonzero(oflow)[0]
-    if flagged.size and device.type == "cuda":
-        raise RuntimeError(
-            f"kernel A flagged block {first_block + flagged[0]} over the row bound, which every stream fits"
-        )
-    return flagged
+    with record_function("rsnb.dec.walk"):
+        rows, esc_lens = lzss_decode.decode_tokens(tok, tok_len, 2 * int(out_lens.max()), first_block)
+    with record_function("rsnb.dec.unescape"):
+        plain, dec_lens = escape.unescape_rows(rows, esc_lens)
+        dec_lens = dec_lens.cpu().numpy()
+        wrong = np.nonzero(dec_lens != out_lens)[0]
+    if wrong.size:
+        i = wrong[0]
+        raise ValueError(f"container: block {first_block + i} decoded {dec_lens[i]} bytes, expected {out_lens[i]}")
+    with record_function("rsnb.dec.d2h"):
+        return _d2h(plain)
+
+
+def _decode_arith(flat, sizes, coded, device, lo: int):
+    """Kernel C over one batch -> (decoded symbol rows, their lengths on the device)."""
+    steps = int(coded.max()) + 1  # payload + EOF
+    blens = torch.from_numpy(sizes.astype(np.int32)).to(device)
+    clens = torch.from_numpy(coded.astype(np.int32)).to(device)
+    prows = _payload_rows(flat, blens, int(sizes.max()) + 1)  # room for the decoder tail byte
+    with record_function("rsnb.dec.coder"):
+        syms, eof = arithmetic_rows.decode_rows(prows, blens, clens, steps)
+    with record_function("rsnb.dec.eof_check"):
+        missing = np.nonzero(eof.cpu().numpy() == 0)[0]
+    if missing.size:
+        raise ValueError(f"container: block {lo + missing[0]} missing EOF symbol")
+    return syms, clens
+
+
+def _decode_huffman(flat, data, starts, sizes, cap_out: int, lzss: bool, tok_lens, device, lo: int):
+    """Kernel H over one batch -> (rows, counts on the device, blocks from the host oracle).
+
+    For lzss,huffman the host blocks' token streams join the card's rows
+    (their dict is then empty) and, with an aux table, every block's token
+    count must equal its entry.
+    """
+    rows, counts, host = huffman_blocks.decode_blocks(flat, data, starts, sizes, cap_out, lo)
+    if lzss:
+        for b, tokens in host.items():
+            counts[b] = len(tokens)
+            if 0 < len(tokens) <= rows.shape[1]:
+                rows[b, : len(tokens)] = torch.frombuffer(bytearray(tokens), dtype=torch.uint8).to(device)
+        host = {}
+        wrong = np.nonzero(counts != tok_lens)[0] if tok_lens is not None else []
+        if len(wrong):
+            i = wrong[0]
+            raise ValueError(
+                f"container: block {lo + i} decoded {counts[i]} token bytes, its aux table says {tok_lens[i]}"
+            )
+    over = np.nonzero(counts > rows.shape[1])[0]
+    if over.size:
+        i = over[0]
+        raise ValueError(f"container: block {lo + i} decoded {counts[i]} bytes, more than its row holds")
+    return rows, torch.from_numpy(counts.astype(np.int32)).to(device), host
 
 
 def _decode_rows(
-    body: memoryview, sizes: np.ndarray, out_lens: np.ndarray, device: torch.device,
-    tok_lens: np.ndarray | None = None,
+    data: bytes, pos: int, algorithms: tuple[str, ...], sizes: np.ndarray, out_lens: np.ndarray,
+    device: torch.device, tok_lens: np.ndarray | None,
 ) -> bytes:
-    """Decode concatenated payloads of known decoded lengths.
+    """Decode the concatenated payloads at ``data[pos:]`` of known decoded lengths.
 
-    ``tok_lens=None`` is the ``("arithmetic",)`` pipeline. With the aux
-    table's token lengths it is ``("lzss", "arithmetic")`` (the JAX
-    package's ``_decode_lzss_arith_rows``, ``_dec_stage`` and ``_dec_tail``):
-    kernel C decodes each block's token stream, kernel F walks it into the
-    escaped plaintext, rows of ``2 * max(out_lens)`` bytes (escaping at most
-    doubles a block), and the escape decode runs on the whole batch.
+    ``tok_lens`` is the aux table of the containers that carry one. The
+    LZSS pipelines end in kernel F and the escape decode on the whole
+    batch, the JAX package's ``_dec_stage`` and ``_dec_tail``.
     """
     B = len(sizes)
-    coded = out_lens if tok_lens is None else tok_lens  # what the coder decodes
-    steps = int(coded.max()) + 1  # payload + EOF
-    capb = int(sizes.max()) + 1  # room for the decoder tail byte
-    if tok_lens is None:
-        maxb = _batch_blocks(device, CUDA_DEC_BYTES_PER_STEP, max(steps, capb))
-    else:
-        cap_out = 2 * int(out_lens.max())
-        maxb = _batch_blocks(device, CUDA_LZ_DEC_BYTES_PER_STEP, max(steps, capb, cap_out))
+    lzss = algorithms[0] == "lzss"
+    steps = max(int(sizes.max()) + 1, int(out_lens.max()) * (2 if lzss else 1))
+    if tok_lens is not None:
+        steps = max(steps, int(tok_lens.max()) + 1)
+    maxb = _batch_blocks(device, CUDA_BYTES_PER_STEP[algorithms][1], steps)
     offsets = np.concatenate([[0], np.cumsum(sizes)])
     out = []
     for lo in range(0, B, maxb):
         hi = min(lo + maxb, B)
         with record_function("rsnb.dec.h2d"):
-            flat = _h2d(body[offsets[lo] : offsets[hi]], device)
-            blens = torch.from_numpy(sizes[lo:hi].astype(np.int32)).to(device)
-            clens = torch.from_numpy(coded[lo:hi].astype(np.int32)).to(device)
-            prows = _payload_rows(flat, blens, capb)
-        with record_function("rsnb.dec.coder"):
-            syms, eof = arithmetic_rows.decode_rows(prows, blens, clens, steps)
-        with record_function("rsnb.dec.eof_check"):
-            missing = np.nonzero(eof.cpu().numpy() == 0)[0]
-        if missing.size:
-            raise ValueError(f"container: block {lo + missing[0]} missing EOF symbol")
-        if tok_lens is None:
-            with record_function("rsnb.dec.d2h"):
-                out.append(_d2h(_rows_payloads(syms, clens)))
-            continue
-        with record_function("rsnb.dec.walk"):
-            rows, esc_lens = lzss_decode.decode_tokens(syms, clens, cap_out, lo)
-        with record_function("rsnb.dec.unescape"):
-            plain, dec_lens = escape.unescape_rows(rows, esc_lens)
-            dec_lens = dec_lens.cpu().numpy()
-            wrong = np.nonzero(dec_lens != out_lens[lo:hi])[0]
-        if wrong.size:
-            i = wrong[0]
-            raise ValueError(
-                f"container: block {lo + i} decoded {dec_lens[i]} bytes, expected {out_lens[lo + i]}"
+            flat = _h2d(memoryview(data)[pos + offsets[lo] : pos + offsets[hi]], device)
+        part = slice(lo, hi)
+        if algorithms in (ARITH, LZ_ARITH):
+            coded = out_lens[part] if tok_lens is None else tok_lens[part]
+            tok, tok_len = _decode_arith(flat, sizes[part], coded, device, lo)
+            if algorithms == ARITH:
+                with record_function("rsnb.dec.d2h"):
+                    out.append(_d2h(_rows_payloads(tok, tok_len)))
+                continue
+        elif algorithms == LZ:
+            tok_len = torch.from_numpy(sizes[part].astype(np.int32)).to(device)
+            tok = _payload_rows(flat, tok_len, int(sizes[part].max()))
+        else:
+            # a block's decoded bytes: its length, or its aux entry; escaped
+            # tokens without an aux table stay under twice the block
+            if tok_lens is not None:
+                cap = int(tok_lens[part].max())
+            else:
+                cap = int(out_lens[part].max()) * (2 if lzss else 1)
+            tok, tok_len, host = _decode_huffman(
+                flat, data, pos + offsets[lo:hi], sizes[part], cap, lzss,
+                None if tok_lens is None else tok_lens[part], device, lo,
             )
-        with record_function("rsnb.dec.d2h"):
-            out.append(_d2h(plain))
+            if algorithms == HUFF:
+                out.append(_huffman_output(tok, tok_len, host))
+                continue
+        out.append(_lzss_tail(tok, tok_len, out_lens[part], lo))
     return b"".join(out)
+
+
+def _huffman_output(rows: torch.Tensor, counts: torch.Tensor, host: dict[int, bytes]) -> bytes:
+    """The decoded bytes of a ("huffman",) batch, the host oracle's blocks in their places."""
+    with record_function("rsnb.dec.d2h"):
+        flat = _d2h(_rows_payloads(rows, counts))
+    if not host:
+        return flat
+    pieces = _split(flat, counts.cpu().tolist())
+    for b, decoded in host.items():
+        pieces[b] = decoded
+    return b"".join(pieces)
 
 
 # ---------------------------------------------------------------------------
@@ -275,7 +352,7 @@ def _decode_rows(
 
 def compress_container(
     data: bytes,
-    algorithms: list[str] | tuple[str, ...] = ("lzss", "arithmetic"),
+    algorithms: list[str] | tuple[str, ...] = LZ_ARITH,
     block_size: int = DEFAULT_BLOCK_SIZE,
     window: int = 4096,
     device: torch.device | str | None = None,
@@ -283,25 +360,25 @@ def compress_container(
     """Block-parallel encode into the RSNB container.
 
     Same arguments as raisin_tpu.parallel.blocks.compress_container, plus
-    ``device`` (:func:`resolve_device`). ``("lzss", "arithmetic")`` (the
-    default) and ``("arithmetic",)`` are ported; other pipelines raise
+    ``device`` (:func:`resolve_device`). The pipelines of :data:`PIPELINES`
+    are ported (``("lzss", "arithmetic")`` is the default); others raise
     NotImplementedError naming the ROADMAP item that brings them. The LZSS
-    window must lie in 1..65535 (ValueError otherwise); the arithmetic
-    pipeline records ``window`` in the header as the JAX package does.
+    window must lie in 1..65535 (ValueError otherwise); the other pipelines
+    record ``window`` in the header as the JAX package does. The Huffman
+    pipelines raise the oracle's ValueError on empty input.
     """
     algorithms = tuple(algorithms)
-    if algorithms not in (("lzss", "arithmetic"), ("arithmetic",)):
+    if algorithms not in PIPELINES:
         raise _not_ported(algorithms)
     if block_size <= 0:
         raise ValueError("block_size must be positive")
-    lzss = algorithms == ("lzss", "arithmetic")
-    if lzss:
+    if algorithms[0] == "lzss":
         lzss_match.check_window(window)
     dev = resolve_device(device)
     with record_function("rsnb.compress"):
-        sizes, body, toks = _encode_rows(data, block_size, dev, window if lzss else None)
+        sizes, body, toks = _encode_rows(data, block_size, dev, algorithms, window)
         with record_function("rsnb.enc.d2h"):
-            aux = [toks] if lzss else []
+            aux = [toks] if algorithms in WITH_AUX else []
             head = _header(sizes, aux, algorithms, block_size, window, len(data))
             # framed on the device: the container comes back in one copy
             return _d2h(torch.cat([_h2d(head, dev), body]))
@@ -372,7 +449,7 @@ def parse_container(data: bytes):
 
 
 def decompress_container(data: bytes, device: torch.device | str | None = None) -> bytes:
-    """Block-parallel decode of an RSNB container (``("lzss", "arithmetic")`` or ``("arithmetic",)``)."""
+    """Block-parallel decode of an RSNB container of one of :data:`PIPELINES`."""
     with record_function("rsnb.decompress"):
         return _decompress_container(data, resolve_device(device))
 
@@ -381,23 +458,22 @@ def _decompress_container(data: bytes, device: torch.device) -> bytes:
     algorithms, block_size, orig_size, sizes, aux, window, pos = _parse_header(data)
     if orig_size == 0:
         return b""
-    if algorithms not in (("lzss", "arithmetic"), ("arithmetic",)):
+    if algorithms not in PIPELINES:
         raise _not_ported(algorithms)
     tok_lens = None
-    if algorithms == ("lzss", "arithmetic"):
-        if not aux:
-            # neither package writes one at windows up to 8191
-            raise NotImplementedError(
-                "an ('lzss', 'arithmetic') container without its aux table of token lengths "
-                "comes with ROADMAP Queue 1 item 17 (aux-less lzss,arithmetic containers)"
-            )
+    if algorithms in WITH_AUX and aux:
         tok_lens = np.array(aux[0], dtype=np.int64)
+    elif algorithms == LZ_ARITH:
+        # neither package writes one at windows up to 8191
+        raise NotImplementedError(
+            "an ('lzss', 'arithmetic') container without its aux table of token lengths "
+            "comes with ROADMAP Queue 1 item 17 (aux-less lzss,arithmetic containers)"
+        )
     sizes = np.array(sizes, dtype=np.int64)
     out_lens = np.minimum(block_size, orig_size - block_size * np.arange(len(sizes), dtype=np.int64))
-    body = memoryview(data)[pos : pos + int(sizes.sum())]
-    if len(body) != sizes.sum():
+    if pos + int(sizes.sum()) > len(data):
         raise ValueError("container: payloads run past the end of the data")
-    out = _decode_rows(body, sizes, out_lens, device, tok_lens)
+    out = _decode_rows(data, pos, algorithms, sizes, out_lens, device, tok_lens)
     if len(out) != orig_size:
         raise ValueError(f"container: decoded {len(out)} bytes, expected {orig_size}")
     return out
