@@ -10,7 +10,8 @@ result line:
    the kernels from raisin_tpu_torch/csrc into raisin_tpu_torch/_build
    (one nvcc per source, all started together);
 2. each kernel against its plain PyTorch version on the card, exactly, on
-   128 edge-case blocks of <= 2 KiB: A encode, B prepad, C decode, and, at
+   128 edge-case blocks of <= 2 KiB: A encode, B prepad, C decode, I event
+   records, and, at
    windows 16 and 4096, D match search, E commit and F token walk; D, E
    and F also on 24 KiB run-heavy blocks at window 16384 (five-digit
    tokens) and on a block whose escaped bytes outgrow shared memory; G
@@ -33,7 +34,16 @@ result line:
    torch.profiler for the time breakdown (host ms per stage range, device
    ms per kernel and copy, and the device's busy share of each call).
    ``("huffman",)`` and ``("lzss",)`` round-trip the same 64 MiB the same
-   way, without the trace;
+   way, without the trace. Then the stream path: the engine's
+   ``compress_bytes(data, algorithms, backend="device")`` on the first
+   STREAM_BYTES of the corpus for ``lzss,arithmetic``, ``arithmetic``,
+   ``huffman`` and ``lzss`` (one block each, so each kernel runs on one
+   SM), whose arithmetic outputs must equal the host oracle's
+   (ORACLE_STREAM); kernel A must not launch there; MB/s over TIMED_RUNS
+   compress calls, one round trip of each through ``decompress_bytes``
+   (raw streams decode on the host, as in the JAX package), one through
+   ``compress_file``/``decompress_file`` in raw and container mode, and one
+   traced ``lzss,arithmetic`` compress;
 4. each kernel at its main path's shapes, timed with CUDA events, beside
    its plain version at the same shapes, outputs compared exactly (this
    also holds every block of the arithmetic main path against the plain
@@ -42,7 +52,11 @@ result line:
    larger of the bytes it must move over the H100 SXM's 3.35 TB/s and
    the integer operations that the function needs on these inputs, by
    the least-work method known for it, over the card's INT32 issue rate,
-   PEAK_INT_OPS_PER_S).
+   PEAK_INT_OPS_PER_S). Kernel I, whose main path is the stream, is timed
+   at the stream's shape beside its plain version on the same symbols (on
+   the host CPU, the wrapper's route for CPU tensors), and at the
+   arithmetic container's shape beside kernel A, where its records,
+   expanded and packed, must equal kernels A + B on every block.
 
 The second-to-last line is the kernel table as JSON, the last line the
 result object. Nothing of JAX is imported.
@@ -97,6 +111,17 @@ ORACLE_BLOCKS_HUFF = {
     1023: ("63f616a552d407d5841d9c0319a2bc3a", 43926, 23864, "713c5178e361512c98a2d8696ae829f2"),
 }
 LZ_HUFF = ("lzss", "huffman")
+# The stream phase: the engine's single-stream codecs on the first
+# STREAM_BYTES of the corpus (bench.make_corpus(STREAM_BYTES), the same
+# bytes). Pipeline -> (sha256 of the input, output length, sha256 of the
+# output of raisin_tpu.formats.arithmetic_ref.compress, after
+# lzss_ref.compress(data, 4096) for lzss,arithmetic), first 32 hex digits
+# each; tests/test_torch_engine.py recomputes them with the oracles.
+STREAM_BYTES = 1 << 20
+ORACLE_STREAM = {
+    "lzss,arithmetic": ("412b3ce7f53d52966faf766423478f56", 374556, "e7de00ff37b7f3157b8390fdf3bdb052"),
+    "arithmetic": ("412b3ce7f53d52966faf766423478f56", 576680, "4a0d0b800446c548ae9cc868b099d444"),
+}
 # the card's peaks for bound_ms: the H100 SXM data sheet's memory rate, and
 # its INT32 issue rate: 132 SMs x 64 INT32 lanes (Hopper architecture) at the
 # 1.98 GHz that the data sheet's 67 TFLOP/s float32 implies (132 SMs x 128
@@ -136,6 +161,10 @@ KERNELS = {
     "huffman_decode": (
         "raisin_tpu_torch/csrc/huffman_decode.cu",
         "raisin_tpu/ops/huffman_pallas.py:211",
+    ),
+    "arith_events": (
+        "raisin_tpu_torch/csrc/arith_events.cu",
+        "raisin_tpu/ops/arithmetic_pallas.py:58",
     ),
 }
 
@@ -293,34 +322,31 @@ def _device_group(name: str) -> str:
     return "torch kernels"
 
 
-def trace_breakdown(data: bytes, dev, algorithms: tuple[str, ...]) -> dict:
-    """Where one compress + decompress through the entry points spends its time.
+def trace_breakdown(run, prefix: str, calls: tuple[str, ...]) -> dict:
+    """Where ``run()`` spends its time, under torch.profiler.
 
-    Runs both under torch.profiler and reads the trace: host milliseconds
-    of each ``rsnb.*`` range that raisin_tpu_torch.parallel.blocks opens,
-    device milliseconds by kernel or copy, and the share of each call's
-    wall time in which the card ran anything. ``device`` is empty when the
-    trace holds no device activity.
+    Reads the trace: host milliseconds of each range whose name starts
+    with ``prefix`` (the ``rsnb.*`` ranges of raisin_tpu_torch.parallel.blocks,
+    the ``stream.*`` ranges of the engine and its stream codecs), device
+    milliseconds by kernel or copy, and for each range name in ``calls``
+    the share of its wall time in which the card ran anything. ``device``
+    is empty when the trace holds no device activity.
     """
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from raisin_tpu_torch.parallel import blocks
-
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        c = blocks.compress_container(data, algorithms, block_size=BLOCK_SIZE, window=WINDOW, device=dev)
-        back = blocks.decompress_container(c, device=dev)
+        run()
         torch.cuda.synchronize()
-    check(back == data, "traced round trip differs")
     events = prof.events()
     host: dict[str, float] = {}
-    calls = {}
+    spans_of: dict[str, list[tuple[float, float]]] = {}
     for e in events:
-        if e.device_type == DeviceType.CPU and e.name.startswith("rsnb."):
+        if e.device_type == DeviceType.CPU and e.name.startswith(prefix):
             host[e.name] = host.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-            if e.name in ("rsnb.compress", "rsnb.decompress"):
-                calls[e.name] = (e.time_range.start, e.time_range.end)
+            if e.name in calls:
+                spans_of.setdefault(e.name, []).append((e.time_range.start, e.time_range.end))
     spans = [(_device_group(e.name), e.time_range.start, e.time_range.end)
              for e in events if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     device: dict[str, float] = {}
@@ -328,10 +354,22 @@ def trace_breakdown(data: bytes, dev, algorithms: tuple[str, ...]) -> dict:
         device[name] = device.get(name, 0.0) + (e - s) / 1e3
     busy = {}
     if spans:
-        for call, (lo, hi) in calls.items():
-            inside = [(max(s, lo), min(e, hi)) for _, s, e in spans if e > lo and s < hi]
-            busy[call] = _union_ms(inside) / ((hi - lo) / 1e3)
+        for call, ranges in spans_of.items():
+            inside = [_union_ms([(max(s, lo), min(e, hi)) for _, s, e in spans if e > lo and s < hi])
+                      for lo, hi in ranges]
+            busy[call] = sum(inside) / (sum(hi - lo for lo, hi in ranges) / 1e3)
     return {"host_ms": host, "device_ms": device, "device_busy_share": busy}
+
+
+def trace_container(data: bytes, dev, algorithms: tuple[str, ...]) -> dict:
+    """One container compress + decompress through the entry points, traced (:func:`trace_breakdown`)."""
+    from raisin_tpu_torch.parallel import blocks
+
+    def run():
+        c = blocks.compress_container(data, algorithms, block_size=BLOCK_SIZE, window=WINDOW, device=dev)
+        check(blocks.decompress_container(c, device=dev) == data, "traced round trip differs")
+
+    return trace_breakdown(run, "rsnb.", ("rsnb.compress", "rsnb.decompress"))
 
 
 def phase_kernels_vs_plain(ar, dev) -> None:
@@ -368,6 +406,14 @@ def phase_kernels_vs_plain(ar, dev) -> None:
     for i, b in enumerate(blocks):
         check(syms_np[i, : len(b)].tobytes() == b, f"kernel C did not restore edge block {i}")
     print(f"phase kernel C (decode) vs plain: equal on {len(blocks)} blocks, round trip exact", flush=True)
+
+    slots_k, s0_k = ar.encode_events(symbols, lengths)
+    slots_p, s0_p = ar._encode_events_torch(symbols, lengths)
+    torch.cuda.synchronize()
+    err = max_abs_err((slots_k, slots_p), (s0_k, s0_p))
+    check(err == 0, f"kernel I differs from its plain version (max abs err {err})")
+    print(f"phase kernel I (event records) vs plain: slots and slot0 equal on {len(blocks)} blocks, "
+          f"max_abs_err 0", flush=True)
 
 
 def lzss_stages(lz, xe, en, window: int, tag: str):
@@ -616,6 +662,105 @@ def phase_main(data: bytes, algorithms: tuple[str, ...], wrappers: dict, reset, 
     return launches, c
 
 
+# the stream path: pipeline -> the kernels each compress must launch
+STREAM_KERNELS = {
+    LZ: ("lzss_match", "lzss_commit", "arith_events"),
+    ("arithmetic",): ("arith_events",),
+    ("huffman",): ("huffman_encode",),
+    ("lzss",): ("lzss_match", "lzss_commit"),
+}
+
+
+def phase_stream(data: bytes, wrappers: dict, reset, card: str, dev) -> dict:
+    """Phase 3, the stream path: the engine's single-stream device codecs on ``data``.
+
+    Returns, per pipeline, the launches of its first timed compress.
+    """
+    import os
+    import tempfile
+
+    import torch
+
+    import raisin_tpu_torch as rt
+    from raisin_tpu_torch.ops import huffman_blocks
+
+    check(sha(data) == ORACLE_STREAM["arithmetic"][0], "the stream input is not the one sampled")
+    launches = {}
+    for algorithms, kernels in STREAM_KERNELS.items():
+        name = ",".join(algorithms)
+
+        def run():
+            return rt.compress_bytes(data, list(algorithms), backend="device", device=dev)
+
+        run()  # warm-up
+        huffman_blocks.reset_host_split()
+        reset()
+        torch.cuda.synchronize()
+        times = []
+        for rep in range(TIMED_RUNS):
+            t0 = time.perf_counter()
+            c = run()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if rep == 0:
+                launches[name] = {k: fn.launches for k, fn in wrappers.items()}
+        got = launches[name]
+        check(all(got[k] > 0 for k in kernels), f"the {name} stream did not launch all of {kernels}: {got}")
+        check(got["arith_encode"] == 0, f"the {name} stream launched kernel A")
+        if name in ORACLE_STREAM:
+            _, size, out_sha = ORACLE_STREAM[name]
+            check((len(c), sha(c)) == (size, out_sha), f"the {name} stream differs from the host oracle's")
+        reset()
+        t0 = time.perf_counter()
+        check(rt.decompress_bytes(c, list(algorithms), backend="device", device=dev) == data,
+              f"the {name} stream did not round-trip through decompress_bytes")
+        t_dec = time.perf_counter() - t0
+        if algorithms == ("huffman",):  # the one stream that decodes on the card: kernel H, no host split
+            split = dict(huffman_blocks.host_split)
+            check(split == {"encode": 0, "decode": 0}, f"the huffman stream took the host split: {split}")
+            check(wrappers["huffman_decode"].launches > 0, "the huffman stream's decompress_bytes never launched kernel H")
+        mbs = sorted(len(data) / 1e6 / t for t in times)
+        print(
+            f"phase stream {name}: compress_bytes of {len(data)} B on the card, {len(c)} B out"
+            f"{' = ORACLE_STREAM' if name in ORACLE_STREAM else ''}; over {TIMED_RUNS} runs compress MB/s "
+            f"median {np.median(mbs):.3f} (min {mbs[0]:.3f}, max {mbs[-1]:.3f}); decompress_bytes round trip "
+            f"exact in {t_dec:.2f} s (its launches {({k: fn.launches for k, fn in wrappers.items() if fn.launches})}, "
+            f"Huffman host split {dict(huffman_blocks.host_split)}); launches of the first run {got}; card {card}",
+            flush=True,
+        )
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "stream.txt")
+        with open(src, "wb") as f:
+            f.write(data)
+        for container in (False, True):
+            out = src + (".rsnb" if container else ".rsn")
+            rt.compress_file(list(LZ), src, out, quiet=True, backend="device", container=container, device=dev)
+            back = rt.decompress_file(list(LZ), out, src + ".back", quiet=True, backend="device", device=dev)
+            with open(src + ".back", "rb") as f:
+                check(back == data and f.read() == data, f"the file round trip (container={container}) differs")
+    print(f"phase stream files: compress_file and decompress_file of {len(data)} B round-trip, raw and "
+          f"container", flush=True)
+
+    def huffman_round_trip():
+        c = rt.compress_bytes(data, ["huffman"], backend="device", device=dev)
+        check(rt.decompress_bytes(c, ["huffman"], backend="device", device=dev) == data, "traced round trip differs")
+
+    traces = {
+        "lzss,arithmetic (one compress_bytes)": trace_breakdown(
+            lambda: rt.compress_bytes(data, list(LZ), backend="device", device=dev), "stream.", ("stream.compress",)),
+        # kernels G and H on one block of the whole input
+        "huffman (one compress_bytes + decompress_bytes)": trace_breakdown(
+            huffman_round_trip, "stream.", ("stream.compress", "stream.decompress")),
+    }
+    for name, trace in traces.items():
+        if not trace["device_ms"]:
+            print(f"phase trace stream {name}: the profiler recorded no device activity; device times not measured",
+                  flush=True)
+        print(f"phase trace stream {name}, ms under torch.profiler: " + json.dumps(trace), flush=True)
+    return launches
+
+
 def _result(err: int, ms: float, plain: float, nbytes: float, ops: float) -> dict:
     bound_ms, bound_by = bound(nbytes, ops)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by}
@@ -649,6 +794,7 @@ def phase_timing_arith(ar, blocks, data: bytes, payloads: list[bytes], dev) -> d
     # symbols in, bits out
     results["arith_encode"] = _result(max_abs_err((raw_k, raw_p), (bits_k, bits_p), (of_k, of_p)), ms_a, plain_a,
                                       4 * coded + stream + 12 * B, _coder_ops(coded, 8 * stream, ar.NUM_CUM))
+    rows_ab, bl_ab = ar.prepad_rows(raw_k, bits_k)  # kernels A + B, for kernel I's cross-check
     del raw_k
 
     ms_b = cuda_ms(lambda: ar.prepad_rows(raw_p, bits_p), 10)
@@ -658,6 +804,8 @@ def phase_timing_arith(ar, blocks, data: bytes, payloads: list[bytes], dev) -> d
     results["arith_prepad"] = _result(max_abs_err((rows_k, rows_p), (bl_k, bl_p)), ms_b, plain_b,
                                       stream + out_bytes + 8 * B, 6 * out_bytes / 4)
     del raw_p, rows_k
+    events_vs_ab(ar, symbols, lengths, rows_ab, bl_ab, ms_a)
+    del rows_ab
 
     # the main path's payloads are the plain version's rows, block for block
     bl_np = bl_p.cpu().numpy()
@@ -675,6 +823,68 @@ def phase_timing_arith(ar, blocks, data: bytes, payloads: list[bytes], dev) -> d
     results["arith_decode"] = _result(max_abs_err((syms_k, syms_p), (eof_k, eof_p)), ms_c, plain_c,
                                       out_bytes + coded - B + 4 * B, _coder_ops(coded, 8 * out_bytes, ar.NUM_CUM))
     return results
+
+
+def events_vs_ab(ar, symbols, lengths, rows_ab, bl_ab, ms_a: float, chunk: int = 64) -> None:
+    """Phase 4, kernel I at the arithmetic container's shape, beside kernel A.
+
+    Its records, expanded and packed in chunks of ``chunk`` blocks, must
+    give every block's `.rsn` bytes as kernels A + B write them.
+    """
+    import torch
+
+    from raisin_tpu_torch.ops import arithmetic_scan
+
+    B, S = symbols.shape
+    ms_i = cuda_ms(lambda: ar.encode_events(symbols, lengths), 3)
+    slots, slot0 = ar.encode_events(symbols, lengths)
+    for lo in range(0, B, chunk):
+        hi = min(lo + chunk, B)
+        want = bl_ab[lo:hi].to(torch.int64)
+        nbytes = int(want.max())
+        bits, bit_lengths = arithmetic_scan.expand_events(slots[lo:hi], slot0[lo:hi], 8 * nbytes)
+        check(torch.equal(bit_lengths.to(torch.int64), 8 * want), f"kernel I's stream lengths differ from A + B's in blocks {lo}..{hi - 1}")
+        cols = torch.arange(nbytes, device=symbols.device)[None, :]
+        ab = torch.where(cols < want[:, None], rows_ab[lo:hi, :nbytes], 0)
+        check(torch.equal(arithmetic_scan.pack_bits(bits), ab), f"kernel I's streams differ from A + B's in blocks {lo}..{hi - 1}")
+    del slots, slot0
+    coded = float((lengths.to(torch.int64) + 1).sum())
+    bound_ms, bound_by = bound(24 * coded, _coder_ops(coded, 8 * float(bl_ab.to(torch.int64).sum()), ar.NUM_CUM))
+    print(f"phase timing arith_events at the arithmetic container's shape ({B} x {S}): kernel {ms_i:.4f} ms "
+          f"(kernel A {ms_a:.4f} ms at the same shape), bound {bound_ms:.4f} ms ({bound_by}); its records, "
+          f"expanded and packed, equal kernels A + B on all {B} blocks", flush=True)
+
+
+def phase_timing_events(ar, data: bytes, dev) -> dict:
+    """Phase 4, kernel I at the stream path's shape (B = 1, S = n + 1) beside its plain version.
+
+    The plain version runs on the same symbols as CPU tensors, the route
+    the wrapper takes for them: one block is a loop of ~30 tensor
+    operations a step, which the host's per-operation cost bounds less
+    than the card's launch cost does.
+    """
+    import torch
+
+    from raisin_tpu_torch.ops import arithmetic_scan
+
+    x = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(torch.int32)
+    symbols = torch.cat([x, torch.tensor([ar.EOF], dtype=torch.int32)])[None].contiguous()
+    lengths = torch.tensor([len(data)], dtype=torch.int32)
+    sym_d, len_d = symbols.to(dev), lengths.to(dev)
+    steps = float(symbols.shape[1])
+    ms = cuda_ms(lambda: ar.encode_events(sym_d, len_d), 3)
+    slots_k, s0_k = ar.encode_events(sym_d, len_d)
+    bits = float(arithmetic_scan.expand_events(slots_k, s0_k, 8)[1][0])  # the stream's length, prepad included
+    slots_k, s0_k = slots_k.cpu(), s0_k.cpu()
+    (slots_p, s0_p), plain = plain_ms(lambda: ar._encode_events_torch(symbols, lengths))
+    # symbols in, 16 slot bytes and slot0 out per step
+    result = _result(max_abs_err((slots_k, slots_p), (s0_k, s0_p)), ms, plain,
+                     24 * steps, _coder_ops(steps, bits, ar.NUM_CUM))
+    print(f"phase timing arith_events at the stream's shape (1 x {int(steps)}): kernel {ms:.4f} ms, "
+          f"plain {plain:.1f} ms on the same symbols on the host CPU, slots and slot0 compared exactly, "
+          f"bound {result['bound_ms']:.4f} ms ({result['bound_by']}), max_abs_err {result['max_abs_err']}",
+          flush=True)
+    return {"arith_events": result}
 
 
 def phase_timing_lzss(data: bytes, tok_lens: list[int], dev) -> dict:
@@ -785,10 +995,11 @@ def main() -> int:
     from raisin_tpu_torch.parallel import blocks
 
     arith = {"arith_encode": ar.encode_bits, "arith_prepad": ar.prepad_rows, "arith_decode": ar.decode_rows}
+    events = {"arith_events": ar.encode_events}
     lz = {"lzss_match": lzss_match.find_matches, "lzss_commit": lzss_commit.commit_tokens,
           "lzss_decode": lzss_decode.walk_tokens}
     huff = {"huffman_encode": huffman_rows.encode_rows, "huffman_decode": huffman_rows.decode_rows}
-    every = {**arith, **lz, **huff}
+    every = {**arith, **lz, **huff, **events}
 
     def reset():
         for fn in every.values():
@@ -818,11 +1029,11 @@ def main() -> int:
     launches_arith, c = phase_main(data, ("arithmetic",), arith, reset, card, dev)
     _, _, _, payloads, _, _ = blocks.parse_container(c)
     check_oracle_blocks(data, payloads)
-    traces = {"arithmetic": trace_breakdown(data, dev, ("arithmetic",))}
+    traces = {"arithmetic": trace_container(data, dev, ("arithmetic",))}
     launches, c = phase_main(data, LZ, {**arith, **lz}, reset, card, dev)
     _, _, _, lz_payloads, aux, _ = blocks.parse_container(c)
     check_oracle_blocks_lzss(data, lz_payloads, aux[0])
-    traces["lzss,arithmetic"] = trace_breakdown(data, dev, LZ)
+    traces["lzss,arithmetic"] = trace_container(data, dev, LZ)
     huffman_blocks.reset_host_split()
     launches_huff, c = phase_main(data, LZ_HUFF, {**lz, **huff}, reset, card, dev)
     split = dict(huffman_blocks.host_split)
@@ -832,7 +1043,7 @@ def main() -> int:
     print(f"phase oracle blocks: arithmetic {sorted(ORACLE_BLOCKS)}, lzss,arithmetic {sorted(ORACLE_BLOCKS_LZSS)} "
           f"and lzss,huffman {sorted(ORACLE_BLOCKS_HUFF)} equal to the host oracle's payloads; "
           f"lzss,huffman blocks on the host split: {split}", flush=True)
-    traces["lzss,huffman"] = trace_breakdown(data, dev, LZ_HUFF)
+    traces["lzss,huffman"] = trace_container(data, dev, LZ_HUFF)
     for name, trace in traces.items():
         if not trace["device_ms"]:
             print(f"phase trace {name}: the profiler recorded no device activity; device times not measured",
@@ -841,11 +1052,13 @@ def main() -> int:
               + json.dumps(trace), flush=True)
     phase_main(data, ("huffman",), huff, reset, card, dev)
     phase_main(data, ("lzss",), lz, reset, card, dev)
+    launches_stream = phase_stream(data[:STREAM_BYTES], every, reset, card, dev)
 
     # phase 4: kernels at the main paths' shapes, beside their plain versions
     results = phase_timing_arith(ar, blocks, data, payloads, dev)
     results.update(phase_timing_lzss(data, aux[0], dev))
     results.update(phase_timing_huffman(data, lh_aux[0], dev))
+    results.update(phase_timing_events(ar, data[:STREAM_BYTES], dev))
     for name, r in results.items():
         check(r["max_abs_err"] == 0, f"{name} differs from its plain version at the main path's shapes (err {r['max_abs_err']})")
         print(f"phase timing {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.1f} ms, "
@@ -854,8 +1067,10 @@ def main() -> int:
     check("jax" not in sys.modules, "jax was imported")
     check("raisin_tpu" not in sys.modules, "the JAX package was imported")
 
-    # launches: A-F from the default lzss,arithmetic main path's first run, G and H from lzss,huffman's
+    # launches: A-F from the default lzss,arithmetic main path's first run, G and H from lzss,huffman's,
+    # I from the lzss,arithmetic stream's
     launches.update({name: launches_huff[name] for name in huff})
+    launches["arith_events"] = launches_stream[",".join(LZ)]["arith_events"]
     table = {
         "kernels": [
             {
@@ -871,7 +1086,8 @@ def main() -> int:
         ]
     }
     print(f"launches on the arithmetic main path's first run: {launches_arith}; "
-          f"on the lzss,huffman main path's first run: {launches_huff}", flush=True)
+          f"on the lzss,huffman main path's first run: {launches_huff}; "
+          f"on the streams' first runs: {launches_stream}", flush=True)
     print(smi)  # as nvidia-smi gives it: name, power limit
     print(json.dumps(table))
     print(json.dumps({

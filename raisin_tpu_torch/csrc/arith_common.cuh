@@ -47,4 +47,23 @@ __device__ __forceinline__ void model_update(uint32_t* cum, int lane, int sym) {
     __syncwarp();
 }
 
+// One encoder step up to the renormalisation, shared by kernels A and I:
+// the model is read before it is updated (EOF updates it too), the freeze
+// comes after the triggering update (arithmetic.go:184-192), and the
+// interval narrows to the symbol's share (diff * upper < 2^31).
+__device__ __forceinline__ void encode_narrow(uint32_t* cum, int lane, int s, uint32_t& low,
+                                              uint32_t& high, uint32_t& count, bool& frozen) {
+    const uint32_t lower = cum[s];
+    const uint32_t upper = cum[s + 1];
+    const uint32_t total = count;
+    if (!frozen) {
+        model_update(cum, lane, s);
+        count += 1;
+        frozen = count >= MAX_FREQ;
+    }
+    const uint32_t diff = high - low + 1;
+    high = low + diff * upper / total - 1;
+    low = low + diff * lower / total;
+}
+
 }  // namespace rsn

@@ -82,20 +82,7 @@ arith_encode_kernel(const int32_t* __restrict__ symbols, const int32_t* __restri
             chunk = i < S ? sym_row[i] : 0;
         }
         const int s = __shfl_sync(FULL_MASK, chunk, t & 31);
-
-        // the model is read before it is updated; EOF updates it too
-        const uint32_t lower = cum[s];
-        const uint32_t upper = cum[s + 1];
-        const uint32_t total = count;
-        if (!frozen) {
-            model_update(cum, lane, s);
-            count += 1;
-            frozen = count >= MAX_FREQ;  // after the triggering update
-        }
-
-        const uint32_t diff = high - low + 1;  // diff * upper < 2^31
-        high = low + diff * upper / total - 1;
-        low = low + diff * lower / total;
+        encode_narrow(cum, lane, s, low, high, count, frozen);
         for (;;) {  // E1/E2/E3 renormalisation, arithmetic.go:115-163
             if (high < ONE_HALF) {
                 w.run(0, 1);

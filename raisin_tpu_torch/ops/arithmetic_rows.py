@@ -10,12 +10,15 @@ Public functions keep the JAX package's (B, S) layout:
 - :func:`decode_rows` (JAX ``decode_rows``): `.rsn` payload rows -> decoded
   symbols (B, num_steps) uint8 and ``eof_ok`` (B,) int32; kernel C
   (csrc/arith_decode.cu).
+- :func:`encode_events` (JAX ``encode_blocks_events``): the same coder,
+  writing the per-step event record that ops/arithmetic_scan.py expands
+  into a single `.rsn` stream; kernel I (csrc/arith_events.cu).
 
 Each kernel wrapper dispatches on the device of the tensor it is given: a
 CUDA tensor launches the kernel (or raises), a CPU tensor runs the plain
 PyTorch version beside it (``_encode_bits_torch``, ``_prepad_torch``,
-``_decode_rows_torch``). Each wrapper counts its kernel launches in
-``<wrapper>.launches``.
+``_decode_rows_torch``, ``_encode_events_torch``). Each wrapper counts its
+kernel launches in ``<wrapper>.launches``.
 
 The plain versions work on int64 tensors, vectorised over blocks and looping
 over steps. Where the kernels loop over renormalisation shifts, the plain
@@ -44,6 +47,7 @@ NUM_CUM = 258
 # block coded in S steps emits at most 16 * S bits; the prepad adds <= 8.
 BITS_PER_STEP = 16
 PREPAD_MAX = 8
+EVENT_SLOTS = 16  # one event slot per renormalisation shift of a step
 
 
 def capw_bound(steps: int) -> int:
@@ -366,7 +370,156 @@ def decode_rows(
 
 decode_rows.launches = 0
 
-KERNEL_WRAPPERS = (encode_bits, prepad_rows, decode_rows)
+
+# ---------------------------------------------------------------------------
+# Event record
+
+
+MODEL_CELLS = 1 << 22  # (block, step, entry) cells of the model that _model_tables holds at once
+STEP_CHUNK = 4096  # coder steps whose per-step tensors _encode_events_torch holds at once
+
+
+def _model_tables(symbols: torch.Tensor, lengths: torch.Tensor):
+    """Every step's (lower, upper, total) in the adaptive model, (B, S) int64 each.
+
+    The model does not depend on the coder's state: before step t it has
+    taken the update of every earlier step up to the freeze, so the steps
+    are vectorised in chunks, each step's table being the chunk's first
+    plus an exclusive cumulative sum of the chunk's updates. Past a block's
+    EOF a step gets (0, 1, 1), which leaves the coder's interval as it is.
+    """
+    dev = symbols.device
+    B, S = symbols.shape
+    sym = symbols.to(torch.int64)
+    n = lengths.to(torch.int64)
+    idx = torch.arange(NUM_CUM, dtype=torch.int64, device=dev)
+    cum = idx.repeat(B, 1)  # the model before the chunk
+    updates = MAX_FREQ - (NUM_CUM - 1)  # the model freezes after this many
+    lower = torch.empty((B, S), dtype=torch.int64, device=dev)
+    upper = torch.empty_like(lower)
+    total = torch.empty_like(lower)
+    chunk = max(1, MODEL_CELLS // (max(B, 1) * NUM_CUM))
+    for a in range(0, S, chunk):
+        s = sym[:, a : a + chunk]
+        t = torch.arange(a, a + s.shape[1], device=dev)
+        upd = (t[None, :] <= n[:, None]) & (t[None, :] < updates)
+        if a < updates:
+            inc = ((idx > s[..., None]) & upd[..., None]).to(torch.int32)
+            before = cum[:, None, :] + (inc.cumsum(1, dtype=torch.int32) - inc)
+            cum = cum + inc.sum(1)
+        else:
+            before = cum[:, None, :].expand(-1, s.shape[1], -1)
+        lower[:, a : a + chunk] = before.gather(2, s[..., None])[..., 0]
+        upper[:, a : a + chunk] = before.gather(2, s[..., None] + 1)[..., 0]
+        total[:, a : a + chunk] = before[..., NUM_CUM - 1]
+    active = torch.arange(S, device=dev)[None, :] <= n[:, None]
+    return torch.where(active, lower, 0), torch.where(active, upper, 1), torch.where(active, total, 1)
+
+
+@functools.cache
+def _renorm_tables(device: torch.device):
+    """(16 - bit_length(x) for x < 2^16, the E3 count of a straddle mask z < 2^15, 2^s - 1 for s < 32)."""
+    bitlen = _bitlen_table(device)
+    z = torch.arange(1 << 15, dtype=torch.int64, device=device)
+    fill = (1 << torch.arange(32, dtype=torch.int64, device=device)) - 1
+    return 16 - bitlen, 15 - bitlen[~z & 0x7FFF], fill
+
+
+@torch.inference_mode()  # the loop makes a few tensor operations a step: no autograd bookkeeping
+def _encode_events_torch(symbols: torch.Tensor, lengths: torch.Tensor):
+    """Plain version of kernel I: (slots (B, S, 16) uint8, slot0 (B, S) int32).
+
+    The model's intervals come first, for all steps (:func:`_model_tables`);
+    then a loop over steps narrows the coder's interval and renormalises it
+    in closed form, as :func:`_renorm_shifts` does: ``k`` E1/E2 shifts, one
+    per leading bit that low and high share, then ``m`` E3 shifts. Only
+    ``k``, ``m`` and the narrowed low are kept, and the records are built
+    from them after the loop: the ``k`` E1/E2 shifts emit bits 15, 14, ...
+    of the narrowed low, the first of them flushing the carried pending
+    count (``slot0``), which sums the E3 shifts since the last emitting
+    step. No emission follows an E3 shift within a step, so the in-step
+    pending field of every slot is 0.
+    """
+    dev = symbols.device
+    B, S = symbols.shape
+    if S == 0:
+        return torch.zeros((B, 0, EVENT_SLOTS), dtype=torch.uint8, device=dev), torch.zeros((B, 0), dtype=torch.int32, device=dev)
+    model = torch.stack(_model_tables(symbols, lengths))  # (3, B, S): lower, upper, total
+    k16, e3, fill = _renorm_tables(dev)
+    low = torch.zeros(B, dtype=torch.int64, device=dev)
+    high = torch.full((B,), MAX_CODE, dtype=torch.int64, device=dev)
+    kml = torch.empty((3, B, S), dtype=torch.int64, device=dev)  # E1/E2 shifts, E3 shifts, narrowed low
+    for a in range(0, S, STEP_CHUNK):
+        ks, ms, lows = [], [], []
+        for lo_t, up_t, tot_t in model[:, :, a : a + STEP_CHUNK].permute(2, 0, 1).unbind(0):
+            diff = high - low + 1
+            nh = low + diff * up_t // tot_t - 1
+            nl = low + diff * lo_t // tot_t
+            k = k16[nl ^ nh]
+            lk = (nl << k) & MAX_CODE
+            hk = (nh << k) & MAX_CODE
+            m = e3[lk & (hk ^ 0x7FFF)]  # the leading bits where low has 1 and high 0
+            shift = k + m
+            low = (nl << shift) & 0x7FFF
+            high = ((nh << shift) | fill[shift]) & 0x7FFF | ONE_HALF
+            ks.append(k)
+            ms.append(m)
+            lows.append(nl)
+        kml[:, :, a : a + STEP_CHUNK] = torch.stack([torch.stack(v, 1) for v in (ks, ms, lows)])
+    ks, ms, lows = kml
+
+    j = torch.arange(EVENT_SLOTS, dtype=torch.int64, device=dev)
+    bit = (lows[..., None] >> (15 - j)) & 1
+    first = (j == 0).to(torch.int64) << 5
+    slots = torch.where(j < ks[..., None], 0x80 | (bit << 6) | first, 0).to(torch.uint8)
+    # the pending count a step carries: the E3 shifts from the last emitting step before it on
+    emit = ks > 0
+    steps = torch.arange(S, dtype=torch.int64, device=dev)
+    e3_before = ms.cumsum(1) - ms
+    last = torch.where(emit, steps, 0).cummax(1).values
+    last = torch.nn.functional.pad(last[:, :-1], (1, 0))  # the last emitting step before t, 0 if none
+    carried = e3_before - e3_before.gather(1, last)
+    slot0 = torch.where(emit, carried, 0).to(torch.int32)
+    return slots, slot0
+
+
+def encode_events(symbols: torch.Tensor, lengths: torch.Tensor):
+    """Adaptive arithmetic encode of B blocks into per-step event records (kernel I).
+
+    Args:
+      symbols: (B, S) int32 in [0, 256], EOF (256) at position ``lengths[b]``.
+      lengths: (B,) int32 payload lengths (< S).
+
+    Returns (slots (B, S, 16) uint8, slot0 (B, S) int32), the record of
+    raisin_tpu/ops/arithmetic_pallas.py:encode_blocks_events: byte j of
+    ``slots[b, t]`` is the j-th renormalisation shift of step t, ``0x80 |
+    bit << 6 | first << 5 | in_pend`` where it emitted and 0 where not;
+    ``slot0[b, t]`` is the carried pending count that the step's first
+    emission flushes. Every step past a block's EOF gives zeros.
+    """
+    if symbols.device.type == "cpu":
+        return _encode_events_torch(symbols, lengths)
+    B, S = _check_cuda("encode_events", symbols, torch.int32, 2)
+    _check_cuda("encode_events", lengths, torch.int32, 1, (B,), symbols.device)
+    dev = symbols.device
+    slots = torch.empty((B, S, EVENT_SLOTS), dtype=torch.uint8, device=dev)
+    slot0 = torch.empty((B, S), dtype=torch.int32, device=dev)
+    if B == 0 or S == 0:
+        return slots, slot0
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        encode_events.launches += 1
+        rc = lib.rsn_arith_events(
+            symbols.data_ptr(), lengths.data_ptr(), slots.data_ptr(), slot0.data_ptr(),
+            B, S, _build.stream_handle(dev),
+        )
+    _build.check("rsn_arith_events", rc)
+    return slots, slot0
+
+
+encode_events.launches = 0
+
+KERNEL_WRAPPERS = (encode_bits, prepad_rows, decode_rows, encode_events)
 
 
 def reset_launch_counts() -> None:

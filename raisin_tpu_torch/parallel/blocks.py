@@ -43,7 +43,6 @@ Layout (little-endian), as in the JAX package:
 from __future__ import annotations
 
 import struct
-import warnings
 
 import numpy as np
 import torch
@@ -51,6 +50,8 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from raisin_tpu_torch.ops import arithmetic_rows, escape, huffman_blocks, lzss_decode, lzss_match, pipeline
+from raisin_tpu_torch.ops.device import d2h as _d2h
+from raisin_tpu_torch.ops.device import h2d as _h2d
 from raisin_tpu_torch.ops.device import resolve_device
 
 MAGIC = b"RSNB"
@@ -94,7 +95,7 @@ CPU_BYTES_PER_STEP = 200
 def _not_ported(algorithms: tuple[str, ...]) -> NotImplementedError:
     return NotImplementedError(
         f"raisin_tpu_torch runs the {', '.join(map(repr, PIPELINES))} containers so far; "
-        f"{algorithms!r} comes with ROADMAP Queue 1 item 14 (the rest: host pipelines)"
+        f"{algorithms!r} comes with ROADMAP Queue 1 item 19 (the host-only codecs and pipelines)"
     )
 
 
@@ -116,24 +117,6 @@ def _block_lengths(n: int, block_size: int) -> tuple[int, np.ndarray]:
     lengths = np.full(B, W, dtype=np.int32)
     lengths[-1] = n - (B - 1) * W
     return W, lengths
-
-
-def _h2d(buf, device: torch.device) -> torch.Tensor:
-    """A bytes-like object -> uint8 tensor on ``device``, read and never written."""
-    if len(buf) == 0:
-        return torch.zeros(0, dtype=torch.uint8, device=device)
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")  # frombuffer warns that bytes are read-only
-        return torch.frombuffer(buf, dtype=torch.uint8).to(device)
-
-
-def _d2h(t: torch.Tensor) -> bytes:
-    """uint8 tensor -> bytes; from the card through pinned host memory."""
-    if t.device.type == "cuda":
-        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        host.copy_(t)
-        t = host
-    return t.numpy().tobytes()
 
 
 def _rows_payloads(rows: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:

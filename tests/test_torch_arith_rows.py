@@ -171,7 +171,9 @@ def test_cpu_wrappers_launch_no_kernel():
     symbols, lengths = _symbols([b"abc", b""], 8)
     rows, bl, _ = ar.encode_rows(torch.from_numpy(symbols), torch.from_numpy(lengths))
     ar.decode_rows(rows, bl, torch.from_numpy(lengths), 8)
-    assert [f.launches for f in ar.KERNEL_WRAPPERS] == [0, 0, 0]
+    ar.encode_events(torch.from_numpy(symbols), torch.from_numpy(lengths))
+    assert len(ar.KERNEL_WRAPPERS) == 4  # kernels A, B, C and I
+    assert [f.launches for f in ar.KERNEL_WRAPPERS] == [0, 0, 0, 0]
 
 
 @pytest.mark.parametrize("bad", [-1, 257])
@@ -199,11 +201,13 @@ def test_library_name_follows_flags_and_compiler(monkeypatch):
 
 
 def test_device_rule():
-    want = "cuda" if torch.cuda.is_available() else "cpu"
-    assert resolve_device(None).type == want
     assert resolve_device("cpu") == torch.device("cpu")
     if torch.cuda.is_available():
+        assert resolve_device(None).type == "cuda"
         assert require_cuda().type == "cuda"
     else:
+        # None means the card: without one it raises instead of taking the CPU
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            resolve_device(None)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             require_cuda()

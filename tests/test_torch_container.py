@@ -98,7 +98,7 @@ def test_missing_eof_raises_like_jax():
         [arithmetic_ref.compress(b"abcdefgh"), arithmetic_ref.compress(b"de")],
         [], ("arithmetic",), 5, 4096, 7,
     )
-    for decode in (jax_blocks.decompress_container, port_blocks.decompress_container):
+    for decode in (jax_blocks.decompress_container, functools.partial(port_blocks.decompress_container, device="cpu")):
         with pytest.raises(ValueError, match="block 0 missing EOF"):
             decode(c)
 
@@ -109,7 +109,7 @@ def test_length_check_raises_like_jax():
         [arithmetic_ref.compress(b"abcd"), arithmetic_ref.compress(b"efgh")],
         [], ("arithmetic",), 4, 4096, 10,
     )
-    for decode in (jax_blocks.decompress_container, port_blocks.decompress_container):
+    for decode in (jax_blocks.decompress_container, functools.partial(port_blocks.decompress_container, device="cpu")):
         with pytest.raises(ValueError, match="decoded 8 bytes, expected 10"):
             decode(c)
 
@@ -332,7 +332,7 @@ def test_lzss_missing_eof_raises_like_jax():
     # the aux table says 3 token bytes, but the stream goes on past them
     tok = lzss_ref.compress(b"abcdefgh", 4096)
     c = port_blocks.assemble_container([arithmetic_ref.compress(tok)], [[3]], LZ, 8, 4096, 8)
-    for decode in (jax_blocks.decompress_container, port_blocks.decompress_container):
+    for decode in (jax_blocks.decompress_container, functools.partial(port_blocks.decompress_container, device="cpu")):
         with pytest.raises(ValueError, match="block 0 missing EOF"):
             decode(c)
 
