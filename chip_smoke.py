@@ -2,6 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (raisin_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root
+    python3 chip_smoke.py --match    # kernel D alone: build, then time_match without the plain version
+    python3 chip_smoke.py --paths    # phase 3 alone: the main paths and the streams, without traces
 
 Phases, each printing one line; any failure exits nonzero before the
 result line:
@@ -14,7 +16,8 @@ result line:
    records, and, at
    windows 16 and 4096, D match search, E commit and F token walk; D, E
    and F also on 24 KiB run-heavy blocks at window 16384 (five-digit
-   tokens) and on a block whose escaped bytes outgrow shared memory; G
+   tokens) and on blocks whose escaped bytes outgrow shared memory, at
+   windows 4096 and 16384 (D's device-memory sweep); G
    Huffman encode and H Huffman decode on the ASCII edge blocks, a block
    whose longest code has 21 bits, a single-symbol block and kernel E's
    token streams at windows 16 and 4096, while the non-ASCII edge blocks
@@ -27,8 +30,9 @@ result line:
    ``("lzss", "huffman")`` at window 4096, each with
    ``decompress_container``. The launch counts are reset just before a
    path's runs and read after its first; the round trips must be exact,
-   every kernel of the path must have launched, no lzss,huffman block may
-   take the host split, and four sampled payloads must equal the host
+   every kernel of the path must have launched, every tile of kernel D
+   must have taken its chain path, no lzss,huffman block may take the
+   host split, and four sampled payloads must equal the host
    oracle's (ORACLE_BLOCKS, ORACLE_BLOCKS_LZSS, ORACLE_BLOCKS_HUFF); timed
    over TIMED_RUNS round trips; then one more round trip under
    torch.profiler for the time breakdown (host ms per stage range, device
@@ -56,7 +60,19 @@ result line:
    at the stream's shape beside its plain version on the same symbols (on
    the host CPU, the wrapper's route for CPU tensors), and at the
    arithmetic container's shape beside kernel A, where its records,
-   expanded and packed, must equal kernels A + B on every block.
+   expanded and packed, must equal kernels A + B on every block. Kernel D
+   runs on four inputs (``MATCH_INPUTS``): the corpus at the container's
+   shape, the stream's shape, and MAIN_BYTES of zero bytes and of random
+   bytes in 64 KiB blocks, each held exactly against its plain version; its
+   tile counters must show the chain path on the corpus, the stream and
+   the random bytes, and the sweep path on the zeros.
+
+``--match`` runs phase 1 and then only kernel D on its four inputs, with a
+digest of its output per input and no plain version; ``--paths`` runs phase
+1 and then phase 3 without its traces. Copied into another checkout of the
+repository (an earlier commit, say), the script measures that tree's code
+the same way, so two trees compare on one card; equal digests mean equal
+outputs.
 
 The second-to-last line is the kernel table as JSON, the last line the
 result object. Nothing of JAX is imported.
@@ -482,15 +498,17 @@ def phase_lzss_vs_plain(dev) -> None:
     print(f"phase kernels D, E, F vs plain at window {window}: equal on {len(big)} blocks of {size} B "
           f"with five-digit tokens, max_abs_err 0", flush=True)
 
-    # a block whose escaped bytes outgrow shared memory: kernel D reads device memory
+    # blocks whose escaped bytes outgrow shared memory: at window 4096 kernel D
+    # tiles them, at 16384 it sweeps each whole block from device memory
     verse = b"the quick brown fox jumps over the lazy dog\n" * 1200
     huge = [b"\xff" * (110 << 10) + verse, verse * 2]
     m, n = padded(huge)
     xe, en = escape.escape_blocks(torch.from_numpy(m).to(dev), torch.from_numpy(n).to(dev))
     check(xe.shape[1] > 211 << 10, "the escaped block fits shared memory after all")
-    lzss_stages(lz, xe, en, WINDOW, f"{xe.shape[1]} B escaped")
-    print(f"phase kernels D, E, F vs plain on {xe.shape[1]} B escaped blocks (past shared memory): "
-          f"equal, max_abs_err 0", flush=True)
+    for window in (WINDOW, 16384):
+        lzss_stages(lz, xe, en, window, f"{xe.shape[1]} B escaped, window {window}")
+    print(f"phase kernels D, E, F vs plain on {xe.shape[1]} B escaped blocks (past shared memory) at "
+          f"windows {WINDOW} and 16384: equal, max_abs_err 0", flush=True)
 
 
 def child_tables(counts: np.ndarray) -> np.ndarray:
@@ -621,7 +639,8 @@ def phase_huffman_vs_plain(dev) -> None:
 def phase_main(data: bytes, algorithms: tuple[str, ...], wrappers: dict, reset, card: str, dev):
     """Phase 3 for one pipeline: timed exact round trips through the entry points.
 
-    Returns (launches of the first run per kernel, the last container).
+    Returns (launches of the first run per kernel, the last container,
+    kernel D's tiles by path in the first run, or None without kernel D).
     """
     import torch
 
@@ -646,8 +665,11 @@ def phase_main(data: bytes, algorithms: tuple[str, ...], wrappers: dict, reset, 
         check(back == data, f"{algorithms} main path round trip {rep} differs")
         if rep == 0:
             launches = {name: fn.launches for name, fn in wrappers.items()}
+            tiles = match_tiles() if "lzss_match" in wrappers else None
     for name, n in launches.items():
         check(n > 0, f"the {algorithms} main path never launched {name}")
+    if tiles is not None:  # the corpus's tiles all take kernel D's chain path (trees that count them)
+        check(tiles["chain"] > 0 and tiles["sweep"] == 0, f"the {algorithms} main path's match tiles: {tiles}")
     mb = len(data) / 1e6
     enc_mbs = sorted(mb / t for t in t_enc)
     dec_mbs = sorted(mb / t for t in t_dec)
@@ -656,10 +678,11 @@ def phase_main(data: bytes, algorithms: tuple[str, ...], wrappers: dict, reset, 
         f"round trip exact {TIMED_RUNS} times; over {TIMED_RUNS} runs "
         f"encode MB/s median {np.median(enc_mbs):.3f} (min {enc_mbs[0]:.3f}, max {enc_mbs[-1]:.3f}), "
         f"decode MB/s median {np.median(dec_mbs):.3f} (min {dec_mbs[0]:.3f}, max {dec_mbs[-1]:.3f}), "
-        f"ratio {len(c) / len(data) * 100:.4f}%, launches of the first run {launches}; card {card}",
+        f"ratio {len(c) / len(data) * 100:.4f}%, launches of the first run {launches}"
+        f"{f', kernel D tiles by path {tiles}' if tiles else ''}; card {card}",
         flush=True,
     )
-    return launches, c
+    return launches, c, tiles
 
 
 # the stream path: pipeline -> the kernels each compress must launch
@@ -671,8 +694,9 @@ STREAM_KERNELS = {
 }
 
 
-def phase_stream(data: bytes, wrappers: dict, reset, card: str, dev) -> dict:
-    """Phase 3, the stream path: the engine's single-stream device codecs on ``data``.
+def phase_stream(data: bytes, wrappers: dict, reset, card: str, dev, trace: bool = True) -> dict:
+    """Phase 3, the stream path: the engine's single-stream device codecs on ``data``,
+    with two traced calls unless ``trace`` is False.
 
     Returns, per pipeline, the launches of its first timed compress.
     """
@@ -741,6 +765,9 @@ def phase_stream(data: bytes, wrappers: dict, reset, card: str, dev) -> dict:
                 check(back == data and f.read() == data, f"the file round trip (container={container}) differs")
     print(f"phase stream files: compress_file and decompress_file of {len(data)} B round-trip, raw and "
           f"container", flush=True)
+
+    if not trace:
+        return launches
 
     def huffman_round_trip():
         c = rt.compress_bytes(data, ["huffman"], backend="device", device=dev)
@@ -887,25 +914,100 @@ def phase_timing_events(ar, data: bytes, dev) -> dict:
     return {"arith_events": result}
 
 
+def match_tiles() -> dict | None:
+    """Kernel D's tiles by path since its counts were last set to 0, or None where
+    the wrapper keeps no such counts (trees before the chain path)."""
+    from raisin_tpu_torch.ops import lzss_match
+
+    fm = lzss_match.find_matches
+    return {"chain": fm.chain_tiles, "sweep": fm.sweep_tiles} if hasattr(fm, "chain_tiles") else None
+
+
+# kernel D's timing inputs: the corpus at the container's shape, the stream's shape, and the two
+# worst cases at the container's shape, MAIN_BYTES of zero bytes (every tile sweeps) and of
+# seeded random bytes (~0.06 2-gram candidates a position)
+MATCH_INPUTS = ("corpus", "stream", "zeros", "random")
+
+
+def match_blocks(name: str, data: bytes) -> list[bytes]:
+    """One of MATCH_INPUTS as blocks: BLOCK_SIZE blocks, or one block of STREAM_BYTES for the stream."""
+    if name == "stream":
+        return [data[:STREAM_BYTES]]
+    src = {
+        "corpus": lambda: data,
+        "zeros": lambda: bytes(MAIN_BYTES),
+        "random": lambda: np.random.default_rng(11).integers(0, 256, MAIN_BYTES, dtype=np.uint8).tobytes(),
+    }[name]()
+    return [src[i : i + BLOCK_SIZE] for i in range(0, len(src), BLOCK_SIZE)]
+
+
+def time_match(data: bytes, dev, plain: bool) -> dict:
+    """Kernel D at window WINDOW on each of MATCH_INPUTS, escaped as the container escapes them.
+
+    Per input: the escaped shape, ms per launch (CUDA events over 3), the
+    tiles by path of one launch, and a digest of (L, D) (equal digests from
+    two trees mean equal outputs); with ``plain``, also the plain version's
+    ms, max_abs_err against it and the bound.
+    """
+    import torch
+
+    from raisin_tpu_torch.ops import escape, lzss_match
+
+    out = {}
+    for name in MATCH_INPUTS:
+        m, n = padded(match_blocks(name, data))
+        xe, en = escape.escape_blocks(torch.from_numpy(m).to(dev), torch.from_numpy(n).to(dev))
+        del m
+        lzss_match.find_matches(xe, en, WINDOW)  # warm-up: a process's first launch also loads the kernel
+        ms = cuda_ms(lambda: lzss_match.find_matches(xe, en, WINDOW), 3)
+        before = match_tiles()
+        L, D = lzss_match.find_matches(xe, en, WINDOW)
+        after = match_tiles()
+        tiles = None if before is None else {k: after[k] - v for k, v in before.items()}
+        r = {"shape": list(xe.shape), "ms": ms, "tiles": tiles,
+             "digest": sha(L.cpu().numpy().tobytes() + D.cpu().numpy().tobytes())}
+        if plain:
+            (L_p, D_p), plain_d = plain_ms(lambda: lzss_match._find_matches_torch(xe, en, WINDOW))
+            esc = float(en.to(torch.int64).sum())
+            # bytes in, (L, D) out; a binary-tree match finder (LZMA's bt4) visits ~log2(window)
+            # nodes a position, where the sweep (and the JAX scan) try every distance
+            r.update(_result(max_abs_err((L, L_p), (D, D_p)), ms, plain_d,
+                             9 * esc, int(np.ceil(np.log2(WINDOW))) * esc))
+            del L_p, D_p
+        out[name] = r
+        del L, D, xe, en
+    return out
+
+
 def phase_timing_lzss(data: bytes, tok_lens: list[int], dev) -> dict:
-    """Phase 4, LZSS: kernels D, E, F at the main path's shapes beside their plain versions."""
+    """Phase 4, LZSS: kernels D, E, F at the main path's shapes beside their plain versions.
+
+    Kernel D also runs on the stream's shape and on the worst cases
+    (:func:`time_match`): the zero blocks must take its sweep path, the
+    corpus and the random blocks its chain path.
+    """
     import torch
 
     from raisin_tpu_torch.ops import escape, lzss_commit, lzss_decode, lzss_match
 
+    match = time_match(data, dev, plain=True)
+    for name, r in match.items():
+        check(r["max_abs_err"] == 0, f"kernel D differs from its plain version on {name} (err {r['max_abs_err']})")
+        print(f"phase timing lzss_match on {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), tiles by path "
+              f"{r['tiles']}, max_abs_err {r['max_abs_err']}", flush=True)
+    paths = {name: {k for k, v in r["tiles"].items() if v} for name, r in match.items()}
+    check(paths == {"corpus": {"chain"}, "stream": {"chain"}, "zeros": {"sweep"}, "random": {"chain"}},
+          f"kernel D's tiles took unexpected paths: {paths}")
+    timing = ("ms", "plain_ms", "max_abs_err", "bound_ms", "bound_by")  # the corpus's, as for every kernel
+    results = {"lzss_match": {k: match["corpus"][k] for k in timing}}
+    results["lzss_match"]["inputs"] = {name: {k: r[k] for k in ("shape", *timing, "tiles")}
+                                       for name, r in match.items()}
+
     m, n = padded([data[i : i + BLOCK_SIZE] for i in range(0, len(data), BLOCK_SIZE)])
     xe, en = escape.escape_blocks(torch.from_numpy(m).to(dev), torch.from_numpy(n).to(dev))
     esc = float(en.to(torch.int64).sum())
-    results = {}
-
-    ms_d = cuda_ms(lambda: lzss_match.find_matches(xe, en, WINDOW), 3)
     L_k, D_k = lzss_match.find_matches(xe, en, WINDOW)
-    (L_p, D_p), plain_d = plain_ms(lambda: lzss_match._find_matches_torch(xe, en, WINDOW))
-    # bytes in, (L, D) out; a binary-tree match finder (LZMA's bt4) visits ~log2(window) nodes a
-    # position, where D (and the JAX scan) try every distance
-    results["lzss_match"] = _result(max_abs_err((L_k, L_p), (D_k, D_p)), ms_d, plain_d,
-                                    9 * esc, int(np.ceil(np.log2(WINDOW))) * esc)
-    del L_p, D_p
 
     ms_e = cuda_ms(lambda: lzss_commit.commit_tokens(xe, L_k, D_k, en), 3)
     tok_k, tl_k = lzss_commit.commit_tokens(xe, L_k, D_k, en)
@@ -1004,6 +1106,8 @@ def main() -> int:
     def reset():
         for fn in every.values():
             fn.launches = 0
+        if match_tiles() is not None:
+            lzss_match.find_matches.chain_tiles = lzss_match.find_matches.sweep_tiles = 0
 
     # phase 1: the card, and the kernels built from this checkout
     dev = require_cuda()
@@ -1019,6 +1123,18 @@ def main() -> int:
     print(f"phase build: {so.relative_to(_build.BUILD_DIR.parent.parent)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
+    if sys.argv[1:] == ["--match"]:  # kernel D alone on its four inputs, no plain version
+        match = time_match(bench.make_corpus(MAIN_BYTES), dev, plain=False)
+        print(json.dumps({"card": smi, "window": WINDOW, "lzss_match": match}))
+        return 0
+    if sys.argv[1:] == ["--paths"]:  # phase 3 alone: the main paths and the streams, no traces
+        data = bench.make_corpus(MAIN_BYTES)
+        for algorithms, wrappers in ((("arithmetic",), arith), (LZ, {**arith, **lz}), (LZ_HUFF, {**lz, **huff}),
+                                     (("huffman",), huff), (("lzss",), lz)):
+            phase_main(data, algorithms, wrappers, reset, card, dev)
+        phase_stream(data[:STREAM_BYTES], every, reset, card, dev, trace=False)
+        return 0
+
     # phase 2: each kernel against its plain version on edge cases
     phase_kernels_vs_plain(ar, dev)
     phase_lzss_vs_plain(dev)
@@ -1026,16 +1142,16 @@ def main() -> int:
 
     # phase 3: the main paths through the entry points a user calls
     data = bench.make_corpus(MAIN_BYTES)
-    launches_arith, c = phase_main(data, ("arithmetic",), arith, reset, card, dev)
+    launches_arith, c, _ = phase_main(data, ("arithmetic",), arith, reset, card, dev)
     _, _, _, payloads, _, _ = blocks.parse_container(c)
     check_oracle_blocks(data, payloads)
     traces = {"arithmetic": trace_container(data, dev, ("arithmetic",))}
-    launches, c = phase_main(data, LZ, {**arith, **lz}, reset, card, dev)
+    launches, c, tiles = phase_main(data, LZ, {**arith, **lz}, reset, card, dev)
     _, _, _, lz_payloads, aux, _ = blocks.parse_container(c)
     check_oracle_blocks_lzss(data, lz_payloads, aux[0])
     traces["lzss,arithmetic"] = trace_container(data, dev, LZ)
     huffman_blocks.reset_host_split()
-    launches_huff, c = phase_main(data, LZ_HUFF, {**lz, **huff}, reset, card, dev)
+    launches_huff, c, _ = phase_main(data, LZ_HUFF, {**lz, **huff}, reset, card, dev)
     split = dict(huffman_blocks.host_split)
     check(split == {"encode": 0, "decode": 0}, f"lzss,huffman blocks took the host split: {split}")
     _, _, _, lh_payloads, lh_aux, _ = blocks.parse_container(c)
@@ -1080,6 +1196,7 @@ def main() -> int:
                 "replaces": KERNELS[name][1],
                 "launches": launches[name],
                 **results[name],
+                **({"tiles": tiles} if name == "lzss_match" else {}),  # the main path's, by path
                 "library_ms": None,  # no single PyTorch call computes any of these functions
             }
             for name in KERNELS

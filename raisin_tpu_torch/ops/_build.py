@@ -38,7 +38,7 @@ SIGNATURES = {
     "rsn_arith_prepad": [_P, _P, _P, _P, _I, _I, _P],
     "rsn_arith_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "rsn_arith_events": [_P, _P, _P, _P, _I, _I, _P],
-    "rsn_lzss_match": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "rsn_lzss_match": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "rsn_lzss_commit": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "rsn_lzss_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "rsn_huffman_encode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],

@@ -12,15 +12,33 @@ raisin_tpu/formats/lzss_ref.py:find_matches):
 - positions with no match, and positions at or past ``lengths[b]``, get
   (0, 0); runs stop at ``lengths[b]``.
 
-For every distance the capped run obeys ``c[i] = eq(i) ? min(c[i+1] + 1, d)
-: 0`` walking positions downwards; that is how kernel D
-(csrc/lzss_match.cu) computes it, one lane per distance. The plain version
-:func:`_find_matches_torch` is the transpose: it loops over distances and,
+The plain version :func:`_find_matches_torch` loops over distances and,
 for all positions at once, takes the forward run from a reverse cumulative
-minimum of the next mismatch, then ``min(run, d)``. Both pick the best
+minimum of the next mismatch, then ``min(run, d)``, and picks the best
 distance with a max over the packed key ``(c << 16) | d``, so distances
 and lengths up to 65535 fit; the JAX package packs 14 bits and caps the
 window at 8191.
+
+Kernel D (csrc/lzss_match.cu) gives the same function with two paths in
+one launch of one CTA per tile of positions:
+
+- windows up to 8191 (``CHAIN_MAX_WINDOW`` in the kernel): tiles of 16384
+  positions, each with its bytes from ``window`` before to ``window``
+  after it in shared memory. A tile first takes the **chain path**: the earlier
+  positions sharing a position's 2-gram (a hash chain, checked byte by
+  byte) are its only candidates with L >= 2; without one, L = 1 at the
+  earliest occurrence of the byte in the window, or (0, 0). If any
+  position of the tile needs more than 1024 chain and compare steps, the
+  whole tile takes the **sweep path** instead: the capped-run recurrence
+  ``c[i] = eq(i) ? min(c[i+1] + 1, d) : 0`` over every distance, walked
+  down from ``window`` positions above the tile (exact, since
+  ``c <= d <= window``);
+- wider windows: the sweep path, one tile per block.
+
+The wrapper reads back how many tiles took each path, into
+``find_matches.chain_tiles`` and ``find_matches.sweep_tiles`` beside
+``find_matches.launches`` (a tile wholly past its block's length counts in
+neither). Reading them synchronises the host with the card once a launch.
 """
 
 from __future__ import annotations
@@ -82,15 +100,21 @@ def find_matches(x: torch.Tensor, lengths: torch.Tensor, window: int):
     D = torch.empty((B, S), dtype=torch.int32, device=dev)
     if B == 0 or S == 0:
         return L, D
+    counts = torch.zeros(2, dtype=torch.int32, device=dev)  # tiles by path: chain, sweep
     lib = _build.library()
     with torch.cuda.device(dev):
         find_matches.launches += 1
         rc = lib.rsn_lzss_match(
-            x.data_ptr(), lengths.data_ptr(), L.data_ptr(), D.data_ptr(),
+            x.data_ptr(), lengths.data_ptr(), L.data_ptr(), D.data_ptr(), counts.data_ptr(),
             B, S, window, _build.stream_handle(dev),
         )
     _build.check("rsn_lzss_match", rc)
+    chain, sweep = counts.tolist()
+    find_matches.chain_tiles += chain
+    find_matches.sweep_tiles += sweep
     return L, D
 
 
 find_matches.launches = 0
+find_matches.chain_tiles = 0
+find_matches.sweep_tiles = 0

@@ -8,11 +8,19 @@ scan on CPU JAX), ``lzss_commit_pallas`` and ``lzss_decode_pallas`` in
 Pallas interpret mode, as tests/test_ops_pallas.py runs them, and against
 ``raisin_tpu.formats.lzss_ref``. Outputs are bytes and integers, so every
 comparison is exact (tolerance 0). Inputs come from seeded numpy.
+
+Kernel D's search (tiles, the 2-gram chain walk with its step budget, the
+byte rule for L = 1, the sweep path started ``window`` positions above a
+tile) runs only on the card, so ``_kernel_model`` mirrors it in Python and
+numpy, with the kernel's constants read from its source, and is held
+against the XLA scan and the oracle here.
 """
 
 from __future__ import annotations
 
 import functools
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -82,6 +90,184 @@ def test_find_matches_plain_equals_xla_scan_and_oracle(kind, window):
         assert list(zip(Dt[i, : len(e)].tolist(), Lt[i, : len(e)].tolist())) == want
     assert not Lt[i, len(e) :].any() and not Dt[i, len(e) :].any()
     assert (Lt[i] <= np.maximum(Dt[i], 0)).all() and (Dt[i] <= window).all()
+
+
+def _kernel_constants() -> dict[str, int]:
+    """Kernel D's integer constants, read from its source (the model mirrors them)."""
+    src = (Path(lzss_match.__file__).resolve().parent.parent / "csrc" / "lzss_match.cu").read_text()
+    return {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+
+
+KD = _kernel_constants()
+
+
+def _hash2(a: int, b: int) -> int:
+    return (((a | (b << 8)) * 0x9E3779B1) & 0xFFFFFFFF) >> (32 - KD["HASH_BITS"])
+
+
+def _model_run(x: bytes, i: int, j: int, lim: int) -> tuple[int, int]:
+    """(run of positions i and j up to lim, words compared): four bytes a step, as the kernel."""
+    run = words = 0
+    while run < lim:
+        words += 1
+        a, b = x[i + run : i + run + 4], x[j + run : j + run + 4]
+        k = next((t for t in range(len(a)) if a[t] != b[t]), len(a))
+        run += k
+        if k < 4:
+            break
+    return min(run, lim), words
+
+
+def _model_chain_tile(x: bytes, window: int, p: int, pe: int, budget: int):
+    """Kernel D's chain path on positions [p, pe): (L, D) lists, or None past the budget."""
+    n = len(x)
+    s0 = max(0, p - window)
+    prev, head = {}, {}
+    for j in range(s0, min(pe, n - 1)):  # positions with a 2-gram, linked in order
+        h = _hash2(x[j], x[j + 1])
+        prev[j] = head.get(h)
+        head[h] = j
+    Ls, Ds = [], []
+    for i in range(p, pe):
+        maxd, room = min(window, i), n - i
+        best, best_d, steps = 1, 0, 0  # runs of 2 or more count here
+        chain = []  # the candidates in the window, nearest first
+        j = prev.get(i)
+        while j is not None and i - j <= maxd:
+            chain.append(j)
+            j = prev[j]
+        off, tie = 0, None
+        for j in chain:
+            steps += 1
+            d = i - j
+            # from best = 4 on, a candidate whose bytes 2, 3 differ is passed over; then
+            # bytes off .. best - 1 equal: a tie is possible; byte best too: a longer run is
+            if (best < 4 or x[j + 2 : j + 4] == x[i + 2 : i + 4]) and (
+                x[i + off : i + best] == x[j + off : j + best] and d >= best
+            ):
+                if d > best and room > best and x[i + best] == x[j + best]:
+                    run, words = _model_run(x, i, j, min(d, room))
+                    steps += words
+                    if run > best:
+                        best, best_d, tie, off = run, d, None, max(run - 3, 0)
+                elif best >= 2:
+                    tie = j  # checked at the end, the farthest only
+            if steps > budget:
+                return None
+        if tie is not None:
+            run, words = _model_run(x, i, tie, min(i - tie, room))
+            steps += words
+            if run >= best:
+                best_d = i - tie
+            else:  # not a tie: walk again, measuring every possible tie past best_d
+                for j in chain:
+                    if steps > budget:
+                        break
+                    steps += 1
+                    d = i - j
+                    if (d > best_d and d >= best and (best < 4 or x[j + 2 : j + 4] == x[i + 2 : i + 4])
+                            and x[i + off : i + best] == x[j + off : j + best]):
+                        run, words = _model_run(x, i, j, min(d, room))
+                        steps += words
+                        if run >= best:
+                            best_d = d
+        if steps > budget:
+            return None
+        if best < 2:  # no 2-gram match: the earliest occurrence of the byte in the window
+            k = x.find(x[i : i + 1], i - maxd, i) if maxd > 0 else -1
+            best, best_d = (1, i - k) if k >= 0 else (0, 0)
+        Ls.append(best)
+        Ds.append(best_d)
+    return Ls, Ds
+
+
+def _model_sweep_tile(x: bytes, window: int, p: int, pe: int, tile: int):
+    """Kernel D's sweep path: the capped-run recurrence over every distance,
+    walked down from min(n, p + tile + window), keys kept for [p, pe)."""
+    a = np.frombuffer(x, np.uint8).astype(np.int64)
+    s0 = max(0, p - window)
+    e = min(len(x), p + tile + window)
+    maxd = min(window, pe - 1)
+    Ls, Ds = np.zeros(pe - p, np.int64), np.zeros(pe - p, np.int64)
+    if maxd <= 0:
+        return Ls, Ds
+    d = np.arange(1, maxd + 1)
+    c = np.zeros(maxd, np.int64)
+    for i in range(e - 1, p - 1, -1):
+        j = i - d
+        eq = (j >= s0) & (a[np.maximum(j, 0)] == a[i])
+        c = np.where(eq, np.minimum(c + 1, d), 0)
+        if i < pe:
+            key = np.where(c > 0, (c << 16) | d, 0).max()
+            Ls[i - p], Ds[i - p] = key >> 16, key & 0xFFFF
+    return Ls, Ds
+
+
+def _kernel_model(x: bytes, window: int, tile: int, budget: int = KD["BUDGET"]):
+    """A CPU model of kernel D on one escaped block at a window <= CHAIN_MAX_WINDOW:
+    tiles of ``tile`` positions, each on the chain path unless a position
+    passes ``budget`` steps, then on the sweep path. Returns (L, D, tiles by path)."""
+    assert window <= KD["CHAIN_MAX_WINDOW"]
+    n = len(x)
+    L, D = np.zeros(n, np.int64), np.zeros(n, np.int64)
+    paths = {"chain": 0, "sweep": 0}
+    for p in range(0, n, tile):
+        pe = min(p + tile, n)
+        got = _model_chain_tile(x, window, p, pe, budget)
+        paths["chain" if got else "sweep"] += 1
+        L[p:pe], D[p:pe] = got or _model_sweep_tile(x, window, p, pe, tile)
+    return L, D, paths
+
+
+@pytest.mark.parametrize("tile", [64, 4096])  # shorter than most windows, and as long as the largest
+@pytest.mark.parametrize("window", [16, 256, 4096])
+@pytest.mark.parametrize("kind", [*KINDS, "zeros"])
+def test_kernel_model_equals_the_xla_scan_and_oracle(kind, window, tile):
+    names, encs, (Lj, Dj), _ = _matches(window)
+    i = names.index(kind)
+    e = encs[i]
+    L, D, paths = _kernel_model(e, window, tile)
+    assert np.array_equal(L, Lj[i, : len(e)]) and np.array_equal(D, Dj[i, : len(e)])
+    if kind != "zeros":  # the oracle's search is quadratic on long runs
+        assert list(zip(D.tolist(), L.tolist())) == lzss_ref.find_matches(e, window)
+    assert sum(paths.values()) == -(-len(e) // tile)
+
+
+# which paths a block's tiles take at a budget of 48 steps (window 256, tiles of 64)
+SMALL_BUDGET_PATHS = {"text": {"chain", "sweep"}, "random": {"chain"}, "runs": {"sweep"},
+                      "escape_heavy": {"chain", "sweep"}, "zeros": {"sweep"}}
+
+
+@pytest.mark.parametrize("kind", [*KINDS, "zeros"])
+def test_kernel_model_takes_both_paths(kind):
+    window, tile = 256, 64
+    names, encs, (Lj, Dj), _ = _matches(window)
+    i = names.index(kind)
+    e = encs[i]
+    L, D, paths = _kernel_model(e, window, tile, budget=48)
+    assert np.array_equal(L, Lj[i, : len(e)]) and np.array_equal(D, Dj[i, : len(e)])
+    assert {path for path, count in paths.items() if count} == SMALL_BUDGET_PATHS[kind]
+
+
+@pytest.mark.parametrize("window", [1, 2, 16])
+def test_kernel_model_on_blocks_of_length_0_to_3(window):
+    blocks = [b"", b"a", b"aa", b"ab", b"aaa", b"aba", b"abb"]
+    x, lengths = _matrix(blocks, 4, 0)
+    Lp, Dp = lzss_match.find_matches(torch.from_numpy(x.astype(np.uint8)), torch.from_numpy(lengths), window)
+    for k, b in enumerate(blocks):
+        L, D, paths = _kernel_model(b, window, 2)
+        assert L.tolist() == Lp[k, : len(b)].tolist() and D.tolist() == Dp[k, : len(b)].tolist(), b
+        assert list(zip(D.tolist(), L.tolist())) == lzss_ref.find_matches(b, window), b
+        assert paths == {"chain": -(-len(b) // 2), "sweep": 0}
+
+
+def test_kernel_model_takes_the_chain_path_on_the_corpus():
+    import bench
+
+    data = bench.make_corpus(16384)
+    L, D, paths = _kernel_model(data, 4096, 4096)
+    assert paths == {"chain": 4, "sweep": 0}
+    assert list(zip(D.tolist(), L.tolist())) == lzss_ref.find_matches(data, 4096)
 
 
 def test_commit_plain_equals_pallas_interpret_and_oracle():
@@ -246,6 +432,7 @@ def test_cpu_wrappers_launch_no_kernel():
     rows, olen = lzss_decode.decode_tokens(tok, tl, 32)
     assert rows[0, : olen[0]].numpy().tobytes() == b"abcabcabcabc"
     assert [f.launches for f in (lzss_match.find_matches, lzss_commit.commit_tokens, lzss_decode.walk_tokens)] == [0] * 3
+    assert lzss_match.find_matches.chain_tiles == lzss_match.find_matches.sweep_tiles == 0
 
 
 @pytest.mark.parametrize("window", [0, 65536])
@@ -268,3 +455,17 @@ def test_chip_smoke_lzss_oracle_blocks_are_the_oracles():
         payloads[i] = arithmetic_ref.compress(tokens)
         tok_lens[i] = len(tokens)
     chip_smoke.check_oracle_blocks_lzss(data, payloads, tok_lens)
+
+
+def test_chip_smoke_match_inputs_have_the_main_paths_shapes():
+    import bench
+    import chip_smoke
+
+    data = bench.make_corpus(chip_smoke.STREAM_BYTES)
+    blocks = {name: chip_smoke.match_blocks(name, data) for name in ("stream", "zeros", "random")}
+    assert blocks["stream"] == [data]
+    per = chip_smoke.MAIN_BYTES // chip_smoke.BLOCK_SIZE
+    for name in ("zeros", "random"):
+        assert len(blocks[name]) == per and {len(b) for b in blocks[name]} == {chip_smoke.BLOCK_SIZE}
+    assert not any(any(b) for b in blocks["zeros"])
+    assert len(set(b"".join(blocks["random"][:4]))) == 256
