@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # from the repository root
     python3 chip_smoke.py --match    # kernel D alone: build, then time_match without the plain version
+    python3 chip_smoke.py --decode   # kernel C alone: build, then time_decode without the plain version
     python3 chip_smoke.py --paths    # phase 3 alone: the main paths and the streams, without traces
 
 Phases, each printing one line; any failure exits nonzero before the
@@ -12,7 +13,9 @@ result line:
    the kernels from raisin_tpu_torch/csrc into raisin_tpu_torch/_build
    (one nvcc per source, all started together);
 2. each kernel against its plain PyTorch version on the card, exactly, on
-   128 edge-case blocks of <= 2 KiB: A encode, B prepad, C decode, I event
+   128 edge-case blocks of <= 2 KiB: A encode, B prepad, C decode (also,
+   against the plain version on the host, at row pitches of every residue
+   mod 4, on garbage rows and on a block that freezes the model), I event
    records, and, at
    windows 16 and 4096, D match search, E commit and F token walk; D, E
    and F also on 24 KiB run-heavy blocks at window 16384 (five-digit
@@ -49,16 +52,20 @@ result line:
    ``compress_file``/``decompress_file`` in raw and container mode, and one
    traced ``lzss,arithmetic`` compress;
 4. each kernel at its main path's shapes, timed with CUDA events, beside
-   its plain version at the same shapes, outputs compared exactly (this
-   also holds every block of the arithmetic main path against the plain
-   version, which the CPU tests hold against the host oracle), with the
-   least time the card could take for the same work (``bound_ms``: the
+   its plain version, outputs compared exactly (the plain A and C run on
+   the first PLAIN_BLOCKS blocks at full step length, the plain I on the
+   stream's whole shape, all three as CPU tensors on the host; the
+   arithmetic main path's first PLAIN_BLOCKS blocks equal the plain A + B's
+   and every block the plain prepad of kernel A's rows, and the CPU tests
+   hold the plain versions against the host oracle), with the least time the card could take for the same work (``bound_ms``: the
    larger of the bytes it must move over the H100 SXM's 3.35 TB/s and
    the integer operations that the function needs on these inputs, by
    the least-work method known for it, over the card's INT32 issue rate,
-   PEAK_INT_OPS_PER_S). Kernel I, whose main path is the stream, is timed
-   at the stream's shape beside its plain version on the same symbols (on
-   the host CPU, the wrapper's route for CPU tensors), and at the
+   PEAK_INT_OPS_PER_S). Kernel C runs on four inputs (``DECODE_INPUTS``):
+   the corpus's rows in the arithmetic and the lzss,arithmetic containers
+   (held against the plain version), and MAIN_BYTES of random bytes and of
+   zero bytes through kernels A + B; on each it must give back the input. Kernel I, whose main path is the
+   stream, is timed at the stream's shape, and at the
    arithmetic container's shape beside kernel A, where its records,
    expanded and packed, must equal kernels A + B on every block. Kernel D
    runs on four inputs (``MATCH_INPUTS``): the corpus at the container's
@@ -68,8 +75,9 @@ result line:
    the random bytes, and the sweep path on the zeros.
 
 ``--match`` runs phase 1 and then only kernel D on its four inputs, with a
-digest of its output per input and no plain version; ``--paths`` runs phase
-1 and then phase 3 without its traces. Copied into another checkout of the
+digest of its output per input and no plain version; ``--decode`` does the
+same for kernel C on its four inputs; ``--paths`` runs phase 1 and then
+phase 3 without its traces. Copied into another checkout of the
 repository (an earlier commit, say), the script measures that tree's code
 the same way, so two trees compare on one card; equal digests mean equal
 outputs.
@@ -422,6 +430,7 @@ def phase_kernels_vs_plain(ar, dev) -> None:
     for i, b in enumerate(blocks):
         check(syms_np[i, : len(b)].tobytes() == b, f"kernel C did not restore edge block {i}")
     print(f"phase kernel C (decode) vs plain: equal on {len(blocks)} blocks, round trip exact", flush=True)
+    decode_edges_vs_plain(ar, rows_p, bl_p, lengths, steps, dev)
 
     slots_k, s0_k = ar.encode_events(symbols, lengths)
     slots_p, s0_p = ar._encode_events_torch(symbols, lengths)
@@ -430,6 +439,50 @@ def phase_kernels_vs_plain(ar, dev) -> None:
     check(err == 0, f"kernel I differs from its plain version (max abs err {err})")
     print(f"phase kernel I (event records) vs plain: slots and slot0 equal on {len(blocks)} blocks, "
           f"max_abs_err 0", flush=True)
+
+
+def decode_vs_plain(ar, prows, blens, out_lens, steps: int, tag: str):
+    """Kernel C against its plain version (on CPU copies of the inputs, the wrapper's route
+    for them) on one batch, exactly; returns the kernel's (syms, eof_ok)."""
+    syms_k, eof_k = ar.decode_rows(prows, blens, out_lens, steps)
+    syms_p, eof_p = ar._decode_rows_torch(prows.cpu(), blens.cpu(), out_lens.cpu(), steps)
+    err = max_abs_err((syms_k.cpu(), syms_p), (eof_k.cpu(), eof_p))
+    check(err == 0, f"kernel C differs from its plain version on {tag} (max abs err {err})")
+    return syms_k, eof_k
+
+
+def decode_edges_vs_plain(ar, rows, blens, lengths, steps: int, dev) -> None:
+    """Phase 2, kernel C on the edges of its design, each held exactly against the plain version
+    (run on the host, as in phase 4):
+    the edge blocks' payloads at row pitches of every residue mod 4 (rows start unaligned),
+    garbage rows (random bytes, lengths and out_lens), and a block long enough to freeze the model."""
+    import torch
+
+    from raisin_tpu_torch.parallel import blocks as container
+
+    flat = container._rows_payloads(rows, blens)
+    pitches = [int(blens.max()) + extra for extra in (1, 2, 3, 4)]
+    for pitch in pitches:
+        decode_vs_plain(ar, container._payload_rows(flat, blens, pitch), blens, lengths, steps, f"pitch {pitch}")
+
+    rng = np.random.default_rng(12)
+    garbage = (1001, 4099)
+    for pitch in garbage:
+        B = 64
+        prows = torch.from_numpy(rng.integers(0, 256, (B, pitch), dtype=np.uint8)).to(dev)
+        bl = torch.from_numpy(rng.integers(-3, pitch + 6, B).astype(np.int32)).to(dev)
+        ol = torch.from_numpy(rng.integers(-2, 3000, B).astype(np.int32)).to(dev)
+        decode_vs_plain(ar, prows, bl, ol, 2048, f"garbage rows at pitch {pitch}")
+
+    long = [bytes(rng.choice(np.frombuffer(b"abcdefgh  \n<>", np.uint8), size=ar.MAX_FREQ + 4000))]
+    symbols, n = batch(*padded(long), dev)
+    rows_l, bl_l, _ = ar.encode_rows(symbols, n)
+    syms, eof = decode_vs_plain(ar, rows_l, bl_l, n, symbols.shape[1], "a block that freezes the model")
+    check(bool(eof.all()) and syms[0, : len(long[0])].cpu().numpy().tobytes() == long[0],
+          "kernel C did not restore the block that freezes the model")
+    print(f"phase kernel C vs plain on its edges: equal on the edge blocks at pitches {pitches}, on 64 "
+          f"garbage rows at each of pitches {list(garbage)}, and on a block of {len(long[0])} B (past the "
+          f"model's freeze), max_abs_err 0", flush=True)
 
 
 def lzss_stages(lz, xe, en, window: int, tag: str):
@@ -801,14 +854,13 @@ def _coder_ops(steps: float, bits: float, num_cum: int) -> float:
     return (2 * int(np.ceil(np.log2(num_cum))) + 6) * steps + bits
 
 
-def phase_timing_arith(ar, blocks, data: bytes, payloads: list[bytes], dev) -> dict:
-    """Phase 4, arithmetic: kernels A, B, C at the main path's shapes beside their plain versions."""
+def phase_timing_arith(ar, data: bytes, payloads: list[bytes], dev) -> dict:
+    """Phase 4, arithmetic: kernels A, B, C at the main path's shapes beside their plain versions
+    (A's and C's on the first PLAIN_BLOCKS blocks); C also on the other DECODE_INPUTS."""
     import torch
 
     symbols, lengths = batch(*padded([data[i : i + BLOCK_SIZE] for i in range(0, len(data), BLOCK_SIZE)]), dev)
     capw = ar.capw_bound(symbols.shape[1])
-    out_lens = lengths
-    steps = symbols.shape[1]
     B = symbols.shape[0]
     coded = float((lengths.to(torch.int64) + 1).sum())  # coder steps, EOF included
     results = {}
@@ -816,40 +868,137 @@ def phase_timing_arith(ar, blocks, data: bytes, payloads: list[bytes], dev) -> d
     ms_a = cuda_ms(lambda: ar.encode_bits(symbols, lengths, capw), 3)
     raw_k, bits_k, of_k = ar.encode_bits(symbols, lengths, capw)
     check(int(of_k.max()) == 0, "kernel A flagged an overflow at the main path's shapes")
-    (raw_p, bits_p, of_p), plain_a = plain_ms(lambda: ar._encode_bits_torch(symbols, lengths, capw))
+    # the plain version on the first PLAIN_BLOCKS blocks at full step length, as CPU tensors
+    p = slice(0, PLAIN_BLOCKS)
+    sym_p, len_p = symbols[p].cpu(), lengths[p].cpu()
+    (raw_p, bits_p, of_p), plain_a = plain_ms(lambda: ar._encode_bits_torch(sym_p, len_p, capw))
     stream = float(((bits_k.to(torch.int64) + 7) // 8).sum())
     # symbols in, bits out
-    results["arith_encode"] = _result(max_abs_err((raw_k, raw_p), (bits_k, bits_p), (of_k, of_p)), ms_a, plain_a,
-                                      4 * coded + stream + 12 * B, _coder_ops(coded, 8 * stream, ar.NUM_CUM))
-    rows_ab, bl_ab = ar.prepad_rows(raw_k, bits_k)  # kernels A + B, for kernel I's cross-check
-    del raw_k
+    err = max_abs_err((raw_k[p].cpu(), raw_p), (bits_k[p].cpu(), bits_p), (of_k[p].cpu(), of_p))
+    results["arith_encode"] = _result(err, ms_a, plain_a, 4 * coded + stream + 12 * B,
+                                      _coder_ops(coded, 8 * stream, ar.NUM_CUM))
+    # the main path's payloads of those blocks are the plain A + B's
+    rows_pp, bl_pp = ar._prepad_torch(raw_p, bits_p)
+    for i in range(PLAIN_BLOCKS):
+        check(rows_pp[i, : int(bl_pp[i])].numpy().tobytes() == payloads[i],
+              f"main-path block {i} differs from the plain versions of kernels A + B")
+    del raw_p, rows_pp
 
-    ms_b = cuda_ms(lambda: ar.prepad_rows(raw_p, bits_p), 10)
-    rows_k, bl_k = ar.prepad_rows(raw_p, bits_p)
-    (rows_p, bl_p), plain_b = plain_ms(lambda: ar._prepad_torch(raw_p, bits_p))
+    ms_b = cuda_ms(lambda: ar.prepad_rows(raw_k, bits_k), 10)
+    rows_k, bl_k = ar.prepad_rows(raw_k, bits_k)  # kernels A + B, also for kernel I's cross-check
+    (rows_p, bl_p), plain_b = plain_ms(lambda: ar._prepad_torch(raw_k, bits_k))
     out_bytes = float(bl_p.to(torch.int64).sum())
     results["arith_prepad"] = _result(max_abs_err((rows_k, rows_p), (bl_k, bl_p)), ms_b, plain_b,
                                       stream + out_bytes + 8 * B, 6 * out_bytes / 4)
-    del raw_p, rows_k
-    events_vs_ab(ar, symbols, lengths, rows_ab, bl_ab, ms_a)
-    del rows_ab
+    del raw_k
+    events_vs_ab(ar, symbols, lengths, rows_k, bl_k, ms_a)
+    del rows_k
 
-    # the main path's payloads are the plain version's rows, block for block
+    # every block of the main path's payloads is the plain prepad of kernel A's rows
     bl_np = bl_p.cpu().numpy()
     rows_np = rows_p[:, : int(bl_np.max())].cpu().numpy()
     for i, p in enumerate(payloads):
         check(rows_np[i, : bl_np[i]].tobytes() == p, f"main-path block {i} differs from the plain version")
+    del rows_p, rows_np, symbols
 
-    blens = torch.tensor([len(p) for p in payloads], dtype=torch.int32, device=dev)
-    prows = blocks._payload_rows(torch.from_numpy(np.frombuffer(b"".join(payloads), np.uint8).copy()).to(dev),
-                                 blens, int(blens.max()) + 1)
-    ms_c = cuda_ms(lambda: ar.decode_rows(prows, blens, out_lens, steps), 3)
-    syms_k, eof_k = ar.decode_rows(prows, blens, out_lens, steps)
-    (syms_p, eof_p), plain_c = plain_ms(lambda: ar._decode_rows_torch(prows, blens, out_lens, steps))
-    # payload in, bytes out
-    results["arith_decode"] = _result(max_abs_err((syms_k, syms_p), (eof_k, eof_p)), ms_c, plain_c,
-                                      out_bytes + coded - B + 4 * B, _coder_ops(coded, 8 * out_bytes, ar.NUM_CUM))
+    decode = time_decode(data, dev, plain=True)
+    for name, r in decode.items():
+        check(r["max_abs_err"] in ((0,) if name in DECODE_MAIN else (None,)),
+              f"kernel C differs from its plain version on {name} (err {r['max_abs_err']})")
+        plain = (f"plain {r['plain_ms']:.1f} ms on its first {PLAIN_BLOCKS} blocks on the host, max_abs_err 0"
+                 if name in DECODE_MAIN else "no plain version")
+        print(f"phase timing arith_decode on {name} {r['shape']}: kernel {r['ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), output = input, digest {r['digest']}, {plain}", flush=True)
+    timing = ("ms", "plain_ms", "max_abs_err", "bound_ms", "bound_by")  # the arithmetic container's, as for every kernel
+    results["arith_decode"] = {k: decode["arithmetic"][k] for k in timing}
+    results["arith_decode"]["inputs"] = decode
     return results
+
+
+# kernel C's timing inputs, each as the container hands it to C: the corpus's rows in the arithmetic
+# container and its token rows in the lzss,arithmetic one (window WINDOW), and MAIN_BYTES of seeded
+# random bytes and of zero bytes in BLOCK_SIZE blocks through the arithmetic container's coder
+DECODE_INPUTS = ("arithmetic", "lzss,arithmetic", "random", "zeros")
+DECODE_MAIN = ("arithmetic", "lzss,arithmetic")  # the main paths' shapes, held against the plain version
+# blocks of each batch that the plain versions of kernels A and C run on, at full step length, as CPU tensors
+PLAIN_BLOCKS = 64
+
+
+def decode_input(name: str, data: bytes, dev):
+    """One of DECODE_INPUTS, coded by kernels A + B (and D + E before them for lzss,arithmetic).
+
+    Returns (payload rows at the container's pitch, the longest payload + 1
+    bytes; byte lengths; coded lengths; steps; the (B, steps) uint8 symbols
+    that kernel C must give back, 0 from each block's EOF on).
+    """
+    import torch
+    import torch.nn.functional as F
+
+    from raisin_tpu_torch.ops import escape, pipeline
+    from raisin_tpu_torch.parallel import blocks
+
+    src = {
+        "arithmetic": lambda: data,
+        "lzss,arithmetic": lambda: data,
+        "random": lambda: np.random.default_rng(13).integers(0, 256, MAIN_BYTES, dtype=np.uint8).tobytes(),
+        "zeros": lambda: bytes(MAIN_BYTES),
+    }[name]()
+    m, n = padded([src[i : i + BLOCK_SIZE] for i in range(0, len(src), BLOCK_SIZE)])
+    x, n = torch.from_numpy(m).to(dev), torch.from_numpy(n).to(dev)
+    del m, src
+    if name == "lzss,arithmetic":
+        x, n = pipeline.lzss_tokens(*escape.escape_blocks(x, n), WINDOW)
+    steps = int(n.max()) + 1
+    payload = F.pad(x[:, : steps - 1], (0, 1))
+    rows, blens, oflow = pipeline.arith_encode_rows(payload, n)
+    check(not oflow.any(), f"kernel A flagged an overflow on {name}")
+    prows = blocks._payload_rows(blocks._rows_payloads(rows, blens), blens, int(blens.max()) + 1)
+    want = torch.where(torch.arange(steps, device=dev)[None, :] < n[:, None], payload, 0)
+    return prows, blens, n, steps, want
+
+
+def time_decode(data: bytes, dev, plain: bool) -> dict:
+    """Kernel C on each of DECODE_INPUTS.
+
+    Per input: the payload rows' shape, the steps, ms per launch (CUDA
+    events over 3), and a digest of (syms, eof_ok) (equal digests from two
+    trees mean equal outputs); C must give back the input, with eof_ok 1 on
+    every block. With ``plain``, also the bound for the whole input and, on
+    the main paths' inputs (DECODE_MAIN), the plain version's ms on the first
+    PLAIN_BLOCKS blocks as CPU tensors (the wrapper's route for them: a loop
+    of small tensor operations a step, cheaper on the host than launched on
+    the card) and max_abs_err against the kernel's rows of those blocks.
+    """
+    import torch
+
+    from raisin_tpu_torch.ops import arithmetic_rows as ar
+
+    out = {}
+    for name in DECODE_INPUTS:
+        prows, blens, n, steps, want = decode_input(name, data, dev)
+        ar.decode_rows(prows, blens, n, steps)  # warm-up: a process's first launch also loads the kernel
+        ms = cuda_ms(lambda: ar.decode_rows(prows, blens, n, steps), 3)
+        syms, eof = ar.decode_rows(prows, blens, n, steps)
+        check(bool(eof.all()) and torch.equal(syms, want), f"kernel C did not give back the {name} input")
+        r = {"shape": [*prows.shape, steps], "ms": ms,
+             "digest": sha(syms.cpu().numpy().tobytes() + eof.cpu().numpy().tobytes())}
+        if plain:
+            B = prows.shape[0]
+            coded = float((n.to(torch.int64) + 1).sum())  # coder steps, EOF included
+            payload = float(blens.to(torch.int64).sum())
+            err, plain_c = None, None
+            if name in DECODE_MAIN:
+                p = slice(0, PLAIN_BLOCKS)
+                args = [t[p].cpu() for t in (prows, blens, n)]
+                (syms_p, eof_p), plain_c = plain_ms(lambda: ar._decode_rows_torch(*args, steps))
+                err = max_abs_err((syms[p].cpu(), syms_p), (eof[p].cpu(), eof_p))
+                del syms_p
+            # payload in, bytes out
+            r.update(_result(err, ms, plain_c, payload + coded - B + 4 * B,
+                             _coder_ops(coded, 8 * payload, ar.NUM_CUM)))
+        out[name] = r
+        del prows, syms, want
+    return out
 
 
 def events_vs_ab(ar, symbols, lengths, rows_ab, bl_ab, ms_a: float, chunk: int = 64) -> None:
@@ -1127,6 +1276,10 @@ def main() -> int:
         match = time_match(bench.make_corpus(MAIN_BYTES), dev, plain=False)
         print(json.dumps({"card": smi, "window": WINDOW, "lzss_match": match}))
         return 0
+    if sys.argv[1:] == ["--decode"]:  # kernel C alone on its four inputs, no plain version
+        decode = time_decode(bench.make_corpus(MAIN_BYTES), dev, plain=False)
+        print(json.dumps({"card": smi, "arith_decode": decode}))
+        return 0
     if sys.argv[1:] == ["--paths"]:  # phase 3 alone: the main paths and the streams, no traces
         data = bench.make_corpus(MAIN_BYTES)
         for algorithms, wrappers in ((("arithmetic",), arith), (LZ, {**arith, **lz}), (LZ_HUFF, {**lz, **huff}),
@@ -1171,7 +1324,7 @@ def main() -> int:
     launches_stream = phase_stream(data[:STREAM_BYTES], every, reset, card, dev)
 
     # phase 4: kernels at the main paths' shapes, beside their plain versions
-    results = phase_timing_arith(ar, blocks, data, payloads, dev)
+    results = phase_timing_arith(ar, data, payloads, dev)
     results.update(phase_timing_lzss(data, aux[0], dev))
     results.update(phase_timing_huffman(data, lh_aux[0], dev))
     results.update(phase_timing_events(ar, data[:STREAM_BYTES], dev))
