@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # from the repository root
     python3 chip_smoke.py --match    # kernel D alone: build, then time_match without the plain version
+    python3 chip_smoke.py --encode   # kernel A alone: build, then time_encode
     python3 chip_smoke.py --decode   # kernel C alone: build, then time_decode without the plain version
     python3 chip_smoke.py --paths    # phase 3 alone: the main paths and the streams, without traces
 
@@ -61,10 +62,12 @@ result line:
    larger of the bytes it must move over the H100 SXM's 3.35 TB/s and
    the integer operations that the function needs on these inputs, by
    the least-work method known for it, over the card's INT32 issue rate,
-   PEAK_INT_OPS_PER_S). Kernel C runs on four inputs (``DECODE_INPUTS``):
-   the corpus's rows in the arithmetic and the lzss,arithmetic containers
-   (held against the plain version), and MAIN_BYTES of random bytes and of
-   zero bytes through kernels A + B; on each it must give back the input. Kernel I, whose main path is the
+   PEAK_INT_OPS_PER_S). Kernels A and C run on four inputs
+   (``DECODE_INPUTS``): the corpus in the arithmetic and the lzss,arithmetic
+   containers, and MAIN_BYTES of random bytes and of zero bytes, each as the
+   container hands it to the kernel (A: with a digest of its output, no
+   overflow; C: the rows of kernels A + B, held against the plain version on
+   the containers' rows, and giving back each input). Kernel I, whose main path is the
    stream, is timed at the stream's shape, and at the
    arithmetic container's shape beside kernel A, where its records,
    expanded and packed, must equal kernels A + B on every block. Kernel D
@@ -75,8 +78,8 @@ result line:
    the random bytes, and the sweep path on the zeros.
 
 ``--match`` runs phase 1 and then only kernel D on its four inputs, with a
-digest of its output per input and no plain version; ``--decode`` does the
-same for kernel C on its four inputs; ``--paths`` runs phase 1 and then
+digest of its output per input and no plain version; ``--encode`` and
+``--decode`` do the same for kernels A and C on theirs; ``--paths`` runs phase 1 and then
 phase 3 without its traces. Copied into another checkout of the
 repository (an earlier commit, say), the script measures that tree's code
 the same way, so two trees compare on one card; equal digests mean equal
@@ -854,15 +857,24 @@ def _coder_ops(steps: float, bits: float, num_cum: int) -> float:
     return (2 * int(np.ceil(np.log2(num_cum))) + 6) * steps + bits
 
 
+def _encode_work(ar, lengths, bits) -> tuple[float, float]:
+    """Kernel A's (bytes, operations) for its bound: symbols in, bits out, a coder step per
+    symbol and EOF."""
+    import torch
+
+    coded = float((lengths.to(torch.int64) + 1).sum())
+    stream = float(((bits.to(torch.int64) + 7) // 8).sum())
+    return 4 * coded + stream + 12 * lengths.numel(), _coder_ops(coded, 8 * stream, ar.NUM_CUM)
+
+
 def phase_timing_arith(ar, data: bytes, payloads: list[bytes], dev) -> dict:
     """Phase 4, arithmetic: kernels A, B, C at the main path's shapes beside their plain versions
-    (A's and C's on the first PLAIN_BLOCKS blocks); C also on the other DECODE_INPUTS."""
+    (A's and C's on the first PLAIN_BLOCKS blocks); A and C also on each of DECODE_INPUTS."""
     import torch
 
     symbols, lengths = batch(*padded([data[i : i + BLOCK_SIZE] for i in range(0, len(data), BLOCK_SIZE)]), dev)
     capw = ar.capw_bound(symbols.shape[1])
     B = symbols.shape[0]
-    coded = float((lengths.to(torch.int64) + 1).sum())  # coder steps, EOF included
     results = {}
 
     ms_a = cuda_ms(lambda: ar.encode_bits(symbols, lengths, capw), 3)
@@ -873,10 +885,8 @@ def phase_timing_arith(ar, data: bytes, payloads: list[bytes], dev) -> dict:
     sym_p, len_p = symbols[p].cpu(), lengths[p].cpu()
     (raw_p, bits_p, of_p), plain_a = plain_ms(lambda: ar._encode_bits_torch(sym_p, len_p, capw))
     stream = float(((bits_k.to(torch.int64) + 7) // 8).sum())
-    # symbols in, bits out
     err = max_abs_err((raw_k[p].cpu(), raw_p), (bits_k[p].cpu(), bits_p), (of_k[p].cpu(), of_p))
-    results["arith_encode"] = _result(err, ms_a, plain_a, 4 * coded + stream + 12 * B,
-                                      _coder_ops(coded, 8 * stream, ar.NUM_CUM))
+    results["arith_encode"] = _result(err, ms_a, plain_a, *_encode_work(ar, lengths, bits_k))
     # the main path's payloads of those blocks are the plain A + B's
     rows_pp, bl_pp = ar._prepad_torch(raw_p, bits_p)
     for i in range(PLAIN_BLOCKS):
@@ -901,6 +911,14 @@ def phase_timing_arith(ar, data: bytes, payloads: list[bytes], dev) -> dict:
         check(rows_np[i, : bl_np[i]].tobytes() == p, f"main-path block {i} differs from the plain version")
     del rows_p, rows_np, symbols
 
+    encode = time_encode(data, dev)
+    for name, r in encode.items():
+        alone = (f", {r['ms_one_warp_per_scheduler']:.4f} ms on its first 4 blocks an SM (one warp a scheduler)"
+                 if "ms_one_warp_per_scheduler" in r else "")
+        print(f"phase timing arith_encode on {name} {r['shape']}: kernel {r['ms']:.4f} ms{alone}, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {r['bits']} bits, oflow 0, digest {r['digest']}", flush=True)
+    results["arith_encode"]["inputs"] = encode
+
     decode = time_decode(data, dev, plain=True)
     for name, r in decode.items():
         check(r["max_abs_err"] in ((0,) if name in DECODE_MAIN else (None,)),
@@ -915,27 +933,25 @@ def phase_timing_arith(ar, data: bytes, payloads: list[bytes], dev) -> dict:
     return results
 
 
-# kernel C's timing inputs, each as the container hands it to C: the corpus's rows in the arithmetic
-# container and its token rows in the lzss,arithmetic one (window WINDOW), and MAIN_BYTES of seeded
-# random bytes and of zero bytes in BLOCK_SIZE blocks through the arithmetic container's coder
+# kernels A's and C's timing inputs, each as the container hands it to them: the corpus in the
+# arithmetic container and its tokens in the lzss,arithmetic one (window WINDOW), and MAIN_BYTES of
+# seeded random bytes and of zero bytes in BLOCK_SIZE blocks through the arithmetic container's coder
 DECODE_INPUTS = ("arithmetic", "lzss,arithmetic", "random", "zeros")
 DECODE_MAIN = ("arithmetic", "lzss,arithmetic")  # the main paths' shapes, held against the plain version
 # blocks of each batch that the plain versions of kernels A and C run on, at full step length, as CPU tensors
 PLAIN_BLOCKS = 64
 
 
-def decode_input(name: str, data: bytes, dev):
-    """One of DECODE_INPUTS, coded by kernels A + B (and D + E before them for lzss,arithmetic).
+def coder_input(name: str, data: bytes, dev):
+    """One of DECODE_INPUTS as the container hands it to kernel A (after D + E for lzss,arithmetic).
 
-    Returns (payload rows at the container's pitch, the longest payload + 1
-    bytes; byte lengths; coded lengths; steps; the (B, steps) uint8 symbols
-    that kernel C must give back, 0 from each block's EOF on).
+    Returns (payload (B, steps) uint8, zero from each block's length on;
+    lengths; steps, the longest length + 1).
     """
     import torch
     import torch.nn.functional as F
 
     from raisin_tpu_torch.ops import escape, pipeline
-    from raisin_tpu_torch.parallel import blocks
 
     src = {
         "arithmetic": lambda: data,
@@ -950,11 +966,66 @@ def decode_input(name: str, data: bytes, dev):
         x, n = pipeline.lzss_tokens(*escape.escape_blocks(x, n), WINDOW)
     steps = int(n.max()) + 1
     payload = F.pad(x[:, : steps - 1], (0, 1))
+    return torch.where(torch.arange(steps, device=dev)[None, :] < n[:, None], payload, 0), n, steps
+
+
+def decode_input(name: str, data: bytes, dev):
+    """One of DECODE_INPUTS, coded by kernels A + B (and D + E before them for lzss,arithmetic).
+
+    Returns (payload rows at the container's pitch, the longest payload + 1
+    bytes; byte lengths; coded lengths; steps; the (B, steps) uint8 symbols
+    that kernel C must give back, 0 from each block's EOF on).
+    """
+    from raisin_tpu_torch.ops import pipeline
+    from raisin_tpu_torch.parallel import blocks
+
+    payload, n, steps = coder_input(name, data, dev)
     rows, blens, oflow = pipeline.arith_encode_rows(payload, n)
     check(not oflow.any(), f"kernel A flagged an overflow on {name}")
     prows = blocks._payload_rows(blocks._rows_payloads(rows, blens), blens, int(blens.max()) + 1)
-    want = torch.where(torch.arange(steps, device=dev)[None, :] < n[:, None], payload, 0)
-    return prows, blens, n, steps, want
+    return prows, blens, n, steps, payload
+
+
+def time_encode(data: bytes, dev) -> dict:
+    """Kernel A on each of DECODE_INPUTS, as the containers hand them to it.
+
+    Per input: the symbols' shape, ms per launch (CUDA events over 3, after
+    a warm-up), the bound for the whole input, and a digest of (raw, bits,
+    oflow) (equal digests from two trees mean equal outputs); no row may
+    overflow. On the arithmetic container's input also the ms of its first
+    4 blocks an SM, one warp a scheduler. The plain version runs in phase 4
+    on the arithmetic container's first PLAIN_BLOCKS blocks.
+    """
+    import torch
+
+    from raisin_tpu_torch.ops import arithmetic_rows as ar
+    from raisin_tpu_torch.ops import pipeline
+
+    out = {}
+    for name in DECODE_INPUTS:
+        payload, n, steps = coder_input(name, data, dev)
+        symbols = pipeline.arith_symbols(payload, n)
+        del payload
+        capw = ar.capw_bound(steps)
+        ar.encode_bits(symbols, n, capw)  # warm-up: a process's first launch also loads the kernel
+        ms = cuda_ms(lambda: ar.encode_bits(symbols, n, capw), 3)
+        raw, bits, oflow = ar.encode_bits(symbols, n, capw)
+        check(not oflow.any(), f"kernel A flagged an overflow on {name}")
+        words = (int(bits.max()) + 31) // 32
+        bound_ms, bound_by = bound(*_encode_work(ar, n, bits))
+        out[name] = {"shape": [symbols.shape[0], steps], "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "bits": int(bits.to(torch.int64).sum()),
+                     "digest": sha(raw[:, :words].cpu().numpy().tobytes() + bits.cpu().numpy().tobytes()
+                                   + oflow.cpu().numpy().tobytes())}
+        if name == "arithmetic":
+            # the first 4 blocks an SM: one CTA of 4 warps on each, one warp on each of its 4
+            # schedulers, so the step's latency alone, without a second warp sharing the issue
+            few = 4 * torch.cuda.get_device_properties(dev).multi_processor_count
+            sym_f, n_f = symbols[:few].contiguous(), n[:few].contiguous()
+            out[name]["ms_one_warp_per_scheduler"] = cuda_ms(lambda: ar.encode_bits(sym_f, n_f, capw), 3)
+            del sym_f
+        del symbols, raw
+    return out
 
 
 def time_decode(data: bytes, dev, plain: bool) -> dict:
@@ -1275,6 +1346,10 @@ def main() -> int:
     if sys.argv[1:] == ["--match"]:  # kernel D alone on its four inputs, no plain version
         match = time_match(bench.make_corpus(MAIN_BYTES), dev, plain=False)
         print(json.dumps({"card": smi, "window": WINDOW, "lzss_match": match}))
+        return 0
+    if sys.argv[1:] == ["--encode"]:  # kernel A alone on its four inputs, no plain version
+        encode = time_encode(bench.make_corpus(MAIN_BYTES), dev)
+        print(json.dumps({"card": smi, "arith_encode": encode}))
         return 0
     if sys.argv[1:] == ["--decode"]:  # kernel C alone on its four inputs, no plain version
         decode = time_decode(bench.make_corpus(MAIN_BYTES), dev, plain=False)

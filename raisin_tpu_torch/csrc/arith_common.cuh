@@ -8,12 +8,14 @@
 // cum[257] reaches MAX_FREQ.
 //
 // One warp codes one block; lane l owns entries l, l+32, ... of the table.
-// The encoders (kernels A and I) keep it in shared memory, so the update
-// touches 32 consecutive words per instruction: one per bank, no
-// conflicts; their scalar coder state is replicated in every lane (all
-// lanes read the same table words, which shared memory broadcasts), and
-// lane 0 alone stores. The decoder (kernel C) keeps it in registers
-// (reg_model_*, below).
+// Kernel I keeps it in shared memory (model_init, model_update,
+// encode_narrow), so the update touches 32 consecutive words per
+// instruction: one per bank, no conflicts; its scalar coder state is
+// replicated in every lane (all lanes read the same table words, which
+// shared memory broadcasts). Kernels A and C keep it in registers
+// (reg_model_*, below); A reads its bounds with reg_model_bounds, and once
+// the model freezes with reg_pairs_bounds, and its step is encode_narrow32
+// and renorm_counts.
 #pragma once
 
 #include <cstdint>
@@ -26,6 +28,10 @@ constexpr uint32_t ONE_FOURTH = 0x4000;
 constexpr uint32_t ONE_HALF = 0x8000;
 constexpr uint32_t THREE_FOURTHS = 0xC000;
 constexpr uint32_t MAX_FREQ = 16383;
+constexpr uint32_t INIT_TOTAL = 257;  // cum[257] before the first step
+// the steps that update the model: the total is INIT_TOTAL + t at step t, and
+// the update that takes it to MAX_FREQ is the last (arithmetic.go:184-192)
+constexpr int UPDATE_STEPS = MAX_FREQ - INIT_TOTAL;
 constexpr int EOF_SYMBOL = 256;
 constexpr int NUM_CUM = 258;
 constexpr int CUM_STRIDE = 260;  // per-warp table, padded to a 16-byte multiple
@@ -48,7 +54,7 @@ __device__ __forceinline__ void model_update(uint32_t* cum, int lane, int sym) {
     __syncwarp();
 }
 
-// One encoder step up to the renormalisation, shared by kernels A and I:
+// One encoder step up to the renormalisation, kernel I's:
 // the model is read before it is updated (EOF updates it too), the freeze
 // comes after the triggering update (arithmetic.go:184-192), and the
 // interval narrows to the symbol's share (diff * upper < 2^31).
@@ -67,7 +73,7 @@ __device__ __forceinline__ void encode_narrow(uint32_t* cum, int lane, int s, ui
     low = low + diff * lower / total;
 }
 
-// The register-resident model (kernel C). Lane l holds cum[l + 32 j] in
+// The register-resident model (kernels A and C). Lane l holds cum[l + 32 j] in
 // c[j], j < MODEL_REGS; the entries past 257 hold MODEL_PAD and never
 // change. A search is MODEL_REGS independent multiply-compares, two folds
 // and two warp reductions, an update MODEL_REGS register adds: no shared
@@ -151,6 +157,73 @@ __host__ __device__ constexpr MagicTable make_magic_table() {
 
 __device__ __forceinline__ uint32_t div_by_total(uint32_t x, uint2 magic) {  // x < 2^30
     return __umulhi(x, magic.x) >> magic.y;
+}
+
+// The encoder's model (kernel A; kernel I's next). Until it freezes, C's
+// layout: cum[i] for a warp-uniform i in [0, NUM_CUM) is register i >> 5 of
+// lane i & 31, taken by a tree of selects on the bits of i >> 5 (depth 4,
+// no local memory) and a shuffle from its owner. The encoder knows its
+// symbol, so it needs no search: lower = cum[s], upper = cum[s + 1].
+__device__ __forceinline__ uint32_t reg_select(const uint32_t (&c)[MODEL_REGS], int j) {
+    static_assert(MODEL_REGS == 9, "the select tree covers registers 0-8");
+    const uint32_t c01 = j & 1 ? c[1] : c[0], c23 = j & 1 ? c[3] : c[2];
+    const uint32_t c45 = j & 1 ? c[5] : c[4], c67 = j & 1 ? c[7] : c[6];
+    const uint32_t c03 = j & 2 ? c23 : c01, c47 = j & 2 ? c67 : c45;
+    const uint32_t c07 = j & 4 ? c47 : c03;
+    return j & 8 ? c[8] : c07;
+}
+
+__device__ __forceinline__ void reg_model_bounds(const uint32_t (&c)[MODEL_REGS], int s, uint32_t& lower,
+                                                 uint32_t& upper) {
+    lower = __shfl_sync(FULL_MASK, reg_select(c, s >> 5), s & 31);
+    upper = __shfl_sync(FULL_MASK, reg_select(c, (s + 1) >> 5), (s + 1) & 31);
+}
+
+// Once it is frozen, each entry's successor beside it: lane l holds
+// cum[i] | cum[i + 1] << 16 in p[j], i = l + 32 j, so one select and one
+// shuffle give both bounds. The entries stay below MAX_FREQ < 2^16, so the
+// halves never mix; the words past i = 256 are never read.
+__device__ __forceinline__ void reg_pairs_from_model(const uint32_t (&c)[MODEL_REGS], int lane,
+                                                     uint32_t (&p)[MODEL_REGS]) {
+#pragma unroll
+    for (int j = 0; j < MODEL_REGS; ++j) {
+        const uint32_t right = __shfl_sync(FULL_MASK, c[j], (lane + 1) & 31);        // cum[i + 1], lane < 31
+        const uint32_t wrap = __shfl_sync(FULL_MASK, j + 1 < MODEL_REGS ? c[j + 1] : 0u, 0);  // lane 31's
+        p[j] = c[j] | (lane == 31 ? wrap : right) << 16;
+    }
+}
+
+__device__ __forceinline__ void reg_pairs_bounds(const uint32_t (&p)[MODEL_REGS], int s, uint32_t& lower,
+                                                 uint32_t& upper) {
+    const uint32_t v = __shfl_sync(FULL_MASK, reg_select(p, s >> 5), s & 31);
+    lower = v & 0xFFFF;
+    upper = v >> 16;
+}
+
+// The symbol's share of the range d = high - low + 1: q_lo = floor(d *
+// lower / total) and q_hi = floor(d * upper / total), so that the interval
+// narrows to [low + q_lo, low + q_hi - 1]. d <= 2^16 and upper <= total <
+// 2^14 keep both dividends below 2^30, so the quotients are div_by_total's;
+// they do not depend on each other, nor on low.
+__device__ __forceinline__ void encode_narrow32(uint32_t d, uint32_t lower, uint32_t upper, uint2 magic,
+                                                uint32_t& q_lo, uint32_t& q_hi) {
+    q_lo = div_by_total(d * lower, magic);
+    q_hi = div_by_total(d * upper, magic);
+}
+
+// The renormalisation of [nl, nh] in closed form: k E1/E2 shifts, one per
+// leading bit that nl and nh share (16 when they are equal), then m E3
+// shifts, one per following bit where nl has 1 and nh 0 (an E3 shift leaves
+// the interval straddling the half, so no E1/E2 shift follows it). Each E3
+// shift flips bit 15 of what it shifts in, and the next shifts that bit out,
+// so m > 0 flips bit 15 once. Gives the new low and d = (nh - nl + 1) << (k + m).
+__device__ __forceinline__ void renorm_counts(uint32_t nl, uint32_t nh, int& k, int& m, uint32_t& low,
+                                              uint32_t& d) {
+    k = __clz(nl ^ nh) - 16;
+    m = __clz(~__funnelshift_lc(0u, nl & ~nh, k + 17));
+    const int s = k + m;
+    low = ((nl << s) & MAX_CODE) ^ (m ? ONE_HALF : 0u);
+    d = (nh - nl + 1) << s;
 }
 
 }  // namespace rsn

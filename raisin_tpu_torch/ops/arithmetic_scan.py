@@ -182,11 +182,11 @@ def decompress(data: bytes, out_len: int | None = None, device: torch.device | s
     A raw stream, which carries no length, decodes with the port's copy of
     the host oracle, as in the JAX package. With ``out_len`` (the decoded
     length; the JAX package's API, which no caller in the port uses)
-    kernel C decodes on ``device``.
+    kernel C decodes on ``device``. Only that path needs a card.
     """
-    dev = resolve_device(device)
     if out_len is None:
         return arithmetic.decompress(data)
+    dev = resolve_device(device)
     # bits.go:63 strips everything through the first 1 bit; without the
     # zero bytes before it, that bit lies in byte 0, where kernel C finds it
     start = next((i for i, b in enumerate(data) if b), None)

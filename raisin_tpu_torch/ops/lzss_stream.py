@@ -43,6 +43,9 @@ def compress(data: bytes, window: int = lzss.DEFAULT_WINDOW_SIZE, device: torch.
 
 
 def decompress(data: bytes, device: torch.device | str | None = None) -> bytes:
-    """LZSS decode of a raw stream: the port's copy of the host oracle."""
-    resolve_device(device)
+    """LZSS decode of a raw stream: the port's copy of the host oracle.
+
+    The decode runs on the host, as in the JAX package, so it needs no card;
+    ``device`` is taken for the registry's common signature and not read.
+    """
     return lzss.decompress(data)

@@ -1,9 +1,10 @@
-// Host emulation of the CUDA features that kernel C (csrc/arith_decode.cu)
-// uses, so that its source compiles with g++ and runs on the CPU in the
-// tests: each warp's 32 lanes run as 32 threads, and the warp intrinsics
-// (shuffles and reductions) exchange values through a barrier. Only
-// warp-uniform control flow around an intrinsic is supported, which is all
-// the kernel has. Launches run the grid's warps one after another.
+// Host emulation of the CUDA features that kernels A and C
+// (csrc/arith_encode.cu, csrc/arith_decode.cu) use, so that their sources
+// compile with g++ and run on the CPU in the tests: each warp's 32 lanes run
+// as 32 threads, and the warp intrinsics (shuffles and reductions) exchange
+// values through a barrier. Only warp-uniform control flow around an
+// intrinsic is supported, which is all the kernels have. Launches run the
+// grid's warps one after another.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -24,7 +25,9 @@ inline dim3e blockDim, gridDim;
 struct uint2 { unsigned x, y; };
 inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
 typedef void* cudaStream_t;
+typedef int cudaError_t;
 inline int cudaGetLastError() { return 0; }
+inline const char* cudaGetErrorString(cudaError_t) { return "no error (host emulation)"; }
 using std::max;
 using std::min;
 inline void __syncwarp() {}

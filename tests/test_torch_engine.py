@@ -28,7 +28,7 @@ from raisin_tpu.formats import arithmetic_ref, huffman_ref, lzss_ref
 from raisin_tpu.ops import huffman_jax, lzss_jax
 from raisin_tpu_torch.engine import core, registry
 from raisin_tpu_torch.formats import lzss as port_lzss
-from raisin_tpu_torch.ops import huffman_blocks, huffman_stream, lzss_stream
+from raisin_tpu_torch.ops import arithmetic_scan, huffman_blocks, huffman_stream, lzss_stream
 from raisin_tpu_torch.parallel import blocks as port_blocks
 from tests.fixtures import ABC, HELLO, UNICODE_TEXT, VERSE, random_bytes, random_text
 
@@ -158,6 +158,19 @@ def test_device_none_without_a_card_raises(monkeypatch):
             call()
     # the host backend never touches a device
     assert raisin_tpu_torch.compress_bytes(DATA, ["arithmetic"], backend="host") == arithmetic_ref.compress(DATA)
+
+
+def test_raw_stream_decode_needs_no_card(monkeypatch):
+    """Raw lzss and arithmetic streams decode on the host, as in the JAX package: the auto
+    order's device codecs take them without a card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    layered = arithmetic_ref.compress(lzss_ref.compress(DATA))
+    for algorithms, stream in ((["lzss", "arithmetic"], layered), (["arithmetic"], arithmetic_ref.compress(DATA)),
+                               (["lzss"], lzss_ref.compress(DATA))):
+        assert raisin_tpu_torch.decompress_bytes(stream, algorithms) == DATA
+        assert raisin_tpu_torch.decompress_bytes(stream, algorithms, backend="device") == DATA
+    with pytest.raises(RuntimeError, match="no CUDA device"):  # a decode by kernel C still needs the card
+        arithmetic_scan.decompress(arithmetic_ref.compress(DATA), out_len=len(DATA))
 
 
 def test_registry_matches_jax():
