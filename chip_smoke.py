@@ -5,6 +5,7 @@
     python3 chip_smoke.py --match    # kernel D alone: build, then time_match without the plain version
     python3 chip_smoke.py --encode   # kernel A alone: build, then time_encode
     python3 chip_smoke.py --decode   # kernel C alone: build, then time_decode without the plain version
+    python3 chip_smoke.py --events   # kernel I alone: build, then time_events without the plain version
     python3 chip_smoke.py --paths    # phase 3 alone: the main paths and the streams, without traces
 
 Phases, each printing one line; any failure exits nonzero before the
@@ -70,7 +71,9 @@ result line:
    the containers' rows, and giving back each input). Kernel I, whose main path is the
    stream, is timed at the stream's shape, and at the
    arithmetic container's shape beside kernel A, where its records,
-   expanded and packed, must equal kernels A + B on every block. Kernel D
+   expanded and packed, must equal kernels A + B on every block; the
+   device ms of each of its three passes at both shapes come from the
+   profiler's kernel names. Kernel D
    runs on four inputs (``MATCH_INPUTS``): the corpus at the container's
    shape, the stream's shape, and MAIN_BYTES of zero bytes and of random
    bytes in 64 KiB blocks, each held exactly against its plain version; its
@@ -79,7 +82,11 @@ result line:
 
 ``--match`` runs phase 1 and then only kernel D on its four inputs, with a
 digest of its output per input and no plain version; ``--encode`` and
-``--decode`` do the same for kernels A and C on theirs; ``--paths`` runs phase 1 and then
+``--decode`` do the same for kernels A and C on theirs, and ``--events``
+for kernel I on ``EVENTS_INPUTS`` (the 1 MiB stream, the 1 MiB
+lzss,arithmetic stream's tokens, 1 MiB of random bytes and of zeros, each
+at B = 1, and the arithmetic container's shape), with each device
+kernel's ms from the profiler; ``--paths`` runs phase 1 and then
 phase 3 without its traces. Copied into another checkout of the
 repository (an earlier commit, say), the script measures that tree's code
 the same way, so two trees compare on one card; equal digests mean equal
@@ -347,6 +354,29 @@ def _device_group(name: str) -> str:
     if name.startswith(("Memcpy", "Memset")):
         return " ".join(name.split()[:2])
     return "torch kernels"
+
+
+def device_kernel_ms(run, reps: int = 5) -> dict:
+    """Device milliseconds of each kernel that ``run()`` launches, by the kernel's name without
+    its namespace and arguments: the median over the launches that one torch.profiler session
+    of ``reps`` calls recorded (empty when it recorded none). Once a process has run for a
+    while, the profiler was seen to drop the device events of a session's first calls, so
+    one call a session is not enough."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    launches: dict[str, list[float]] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+            found = re.search(r"\w*_kernel\w*", e.name)
+            launches.setdefault(found.group(0) if found else e.name, []).append(e.time_range.elapsed_us() / 1e3)
+    return {name: float(np.median(ms)) for name, ms in launches.items()}
 
 
 def trace_breakdown(run, prefix: str, calls: tuple[str, ...]) -> dict:
@@ -1110,13 +1140,9 @@ def phase_timing_events(ar, data: bytes, dev) -> dict:
     operations a step, which the host's per-operation cost bounds less
     than the card's launch cost does.
     """
-    import torch
-
     from raisin_tpu_torch.ops import arithmetic_scan
 
-    x = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(torch.int32)
-    symbols = torch.cat([x, torch.tensor([ar.EOF], dtype=torch.int32)])[None].contiguous()
-    lengths = torch.tensor([len(data)], dtype=torch.int32)
+    symbols, lengths = stream_symbols(data, "cpu")
     sym_d, len_d = symbols.to(dev), lengths.to(dev)
     steps = float(symbols.shape[1])
     ms = cuda_ms(lambda: ar.encode_events(sym_d, len_d), 3)
@@ -1132,6 +1158,82 @@ def phase_timing_events(ar, data: bytes, dev) -> dict:
           f"bound {result['bound_ms']:.4f} ms ({result['bound_by']}), max_abs_err {result['max_abs_err']}",
           flush=True)
     return {"arith_events": result}
+
+
+def events_passes(data: bytes, dev) -> dict:
+    """Phase 4: the device ms of each kernel that one call of kernel I launches, at the
+    stream's and at the arithmetic container's shapes (:func:`device_kernel_ms`)."""
+    from raisin_tpu_torch.ops import arithmetic_rows as ar
+
+    out = {}
+    for name in ("stream", "arithmetic container"):
+        symbols, lengths = events_input(name, data, dev)
+        out[name] = device_kernel_ms(lambda: ar.encode_events(symbols, lengths))
+        del symbols, lengths
+    print(f"phase timing arith_events, device ms by kernel (profiler): {json.dumps(out)}", flush=True)
+    return out
+
+
+def stream_symbols(data: bytes, dev):
+    """The stream path's coder input for ``data``: (symbols (1, n + 1) int32 with EOF at n,
+    lengths (1,) int32) on ``dev``, as arithmetic_scan.compress builds them."""
+    import torch
+
+    from raisin_tpu_torch.ops.arithmetic_rows import EOF
+
+    x = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(torch.int32)
+    symbols = torch.cat([x, torch.tensor([EOF], dtype=torch.int32)])[None].contiguous()
+    return symbols.to(dev), torch.tensor([len(data)], dtype=torch.int32, device=dev)
+
+
+# kernel I's timing inputs: STREAM_BYTES at B = 1 as the stream path hands them to it (the corpus,
+# the lzss,arithmetic stream's tokens at window WINDOW, seeded random bytes, zero bytes), and the
+# arithmetic container's shape (the corpus's MAIN_BYTES in BLOCK_SIZE blocks)
+EVENTS_INPUTS = ("stream", "lzss,arithmetic stream", "random stream", "zeros stream", "arithmetic container")
+
+
+def events_input(name: str, data: bytes, dev):
+    """One of EVENTS_INPUTS: (symbols, lengths) on ``dev``."""
+    import raisin_tpu_torch as rt
+    from raisin_tpu_torch.ops import pipeline
+
+    if name == "arithmetic container":
+        payload, n, _ = coder_input("arithmetic", data, dev)
+        return pipeline.arith_symbols(payload, n), n
+    src = {
+        "stream": lambda: data[:STREAM_BYTES],
+        "lzss,arithmetic stream": lambda: rt.compress_bytes(data[:STREAM_BYTES], ["lzss"], backend="device", device=dev),
+        "random stream": lambda: np.random.default_rng(17).integers(0, 256, STREAM_BYTES, dtype=np.uint8).tobytes(),
+        "zeros stream": lambda: bytes(STREAM_BYTES),
+    }[name]()
+    return stream_symbols(src, dev)
+
+
+def time_events(data: bytes, dev) -> dict:
+    """Kernel I on each of EVENTS_INPUTS, without its plain version.
+
+    Per input: the symbols' shape, ms per call (CUDA events over 3, after a
+    warm-up), the device ms of each kernel one call launches (the
+    profiler's names), and a digest of (slots, slot0) (equal digests from
+    two trees mean equal outputs).
+    """
+    from raisin_tpu_torch.ops import arithmetic_rows as ar
+
+    out = {}
+    for name in EVENTS_INPUTS:
+        symbols, lengths = events_input(name, data, dev)
+        ar.encode_events(symbols, lengths)  # warm-up: a process's first launch also loads the kernel
+        ms = cuda_ms(lambda: ar.encode_events(symbols, lengths), 3)
+        passes = device_kernel_ms(lambda: ar.encode_events(symbols, lengths))
+        slots, slot0 = ar.encode_events(symbols, lengths)
+        h = hashlib.sha256(slots.cpu().numpy())
+        h.update(slot0.cpu().numpy())
+        out[name] = {"shape": list(symbols.shape), "ms": ms, "device_kernels_ms": passes,
+                     "digest": h.hexdigest()[:32]}
+        print(f"phase events {name} {list(symbols.shape)}: kernel {ms:.4f} ms, digest {out[name]['digest']}, "
+              f"device ms by kernel (profiler) {json.dumps(passes)}", flush=True)
+        del symbols, slots, slot0
+    return out
 
 
 def match_tiles() -> dict | None:
@@ -1355,6 +1457,10 @@ def main() -> int:
         decode = time_decode(bench.make_corpus(MAIN_BYTES), dev, plain=False)
         print(json.dumps({"card": smi, "arith_decode": decode}))
         return 0
+    if sys.argv[1:] == ["--events"]:  # kernel I alone on its five inputs, no plain version
+        events = time_events(bench.make_corpus(MAIN_BYTES), dev)
+        print(json.dumps({"card": smi, "arith_events": events}))
+        return 0
     if sys.argv[1:] == ["--paths"]:  # phase 3 alone: the main paths and the streams, no traces
         data = bench.make_corpus(MAIN_BYTES)
         for algorithms, wrappers in ((("arithmetic",), arith), (LZ, {**arith, **lz}), (LZ_HUFF, {**lz, **huff}),
@@ -1399,10 +1505,12 @@ def main() -> int:
     launches_stream = phase_stream(data[:STREAM_BYTES], every, reset, card, dev)
 
     # phase 4: kernels at the main paths' shapes, beside their plain versions
+    passes = events_passes(data, dev)
     results = phase_timing_arith(ar, data, payloads, dev)
     results.update(phase_timing_lzss(data, aux[0], dev))
     results.update(phase_timing_huffman(data, lh_aux[0], dev))
     results.update(phase_timing_events(ar, data[:STREAM_BYTES], dev))
+    results["arith_events"]["device_kernels_ms"] = passes
     for name, r in results.items():
         check(r["max_abs_err"] == 0, f"{name} differs from its plain version at the main path's shapes (err {r['max_abs_err']})")
         print(f"phase timing {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.1f} ms, "

@@ -7,15 +7,12 @@
 // entry above the coded symbol after each step (EOF included) until
 // cum[257] reaches MAX_FREQ.
 //
-// One warp codes one block; lane l owns entries l, l+32, ... of the table.
-// Kernel I keeps it in shared memory (model_init, model_update,
-// encode_narrow), so the update touches 32 consecutive words per
-// instruction: one per bank, no conflicts; its scalar coder state is
-// replicated in every lane (all lanes read the same table words, which
-// shared memory broadcasts). Kernels A and C keep it in registers
-// (reg_model_*, below); A reads its bounds with reg_model_bounds, and once
-// the model freezes with reg_pairs_bounds, and its step is encode_narrow32
-// and renorm_counts.
+// The model lives in registers (reg_model_*, below): lane l of a warp owns
+// entries l, l+32, ... Kernel C searches it (reg_model_find); kernels A and
+// I read a known symbol's bounds (reg_model_bounds, and once the model
+// freezes reg_pairs_bounds in A). The coder's step is encode_narrow32 and
+// renorm_counts, in 32 bits, with the quotients by the total taken by a
+// magic number (MagicTable).
 #pragma once
 
 #include <cstdint>
@@ -34,46 +31,10 @@ constexpr uint32_t INIT_TOTAL = 257;  // cum[257] before the first step
 constexpr int UPDATE_STEPS = MAX_FREQ - INIT_TOTAL;
 constexpr int EOF_SYMBOL = 256;
 constexpr int NUM_CUM = 258;
-constexpr int CUM_STRIDE = 260;  // per-warp table, padded to a 16-byte multiple
 constexpr unsigned FULL_MASK = 0xFFFFFFFFu;
 constexpr int WARPS_PER_CTA = 4;
 
-// cum[i] = i for the lanes' entries.
-__device__ __forceinline__ void model_init(uint32_t* cum, int lane) {
-    for (int i = lane; i < NUM_CUM; i += 32) cum[i] = i;
-    __syncwarp();
-}
-
-// +1 on every entry above `sym` (the model update, arithmetic.go:184).
-// Callers read the entries they need before this and see the update after.
-__device__ __forceinline__ void model_update(uint32_t* cum, int lane, int sym) {
-    __syncwarp();
-    for (int i = lane; i < NUM_CUM; i += 32) {
-        if (i > sym) cum[i] += 1;
-    }
-    __syncwarp();
-}
-
-// One encoder step up to the renormalisation, kernel I's:
-// the model is read before it is updated (EOF updates it too), the freeze
-// comes after the triggering update (arithmetic.go:184-192), and the
-// interval narrows to the symbol's share (diff * upper < 2^31).
-__device__ __forceinline__ void encode_narrow(uint32_t* cum, int lane, int s, uint32_t& low,
-                                              uint32_t& high, uint32_t& count, bool& frozen) {
-    const uint32_t lower = cum[s];
-    const uint32_t upper = cum[s + 1];
-    const uint32_t total = count;
-    if (!frozen) {
-        model_update(cum, lane, s);
-        count += 1;
-        frozen = count >= MAX_FREQ;
-    }
-    const uint32_t diff = high - low + 1;
-    high = low + diff * upper / total - 1;
-    low = low + diff * lower / total;
-}
-
-// The register-resident model (kernels A and C). Lane l holds cum[l + 32 j] in
+// The register-resident model (kernels A, C and I). Lane l holds cum[l + 32 j] in
 // c[j], j < MODEL_REGS; the entries past 257 hold MODEL_PAD and never
 // change. A search is MODEL_REGS independent multiply-compares, two folds
 // and two warp reductions, an update MODEL_REGS register adds: no shared
@@ -87,6 +48,28 @@ __device__ __forceinline__ void reg_model_init(uint32_t (&c)[MODEL_REGS], int la
     for (int j = 0; j < MODEL_REGS; ++j) {
         const int i = lane + 32 * j;
         c[j] = i < NUM_CUM ? (uint32_t)i : MODEL_PAD;
+    }
+}
+
+// The model after the updates whose symbols `counts` counts (counts[s] for s
+// <= EOF_SYMBOL): cum[i] = i + the counts of the symbols below i, an
+// exclusive prefix over the entries; each register's 32 entries are one
+// shuffle scan, carried into the next register (kernel I's pass 1).
+__device__ __forceinline__ void reg_model_from_counts(uint32_t (&c)[MODEL_REGS], int lane,
+                                                      const uint32_t* counts) {
+    uint32_t carry = 0;  // the counts of the entries below register j's
+#pragma unroll
+    for (int j = 0; j < MODEL_REGS; ++j) {
+        const int i = lane + 32 * j;
+        const uint32_t own = i <= EOF_SYMBOL ? counts[i] : 0u;
+        uint32_t v = own;  // inclusive scan over the lanes
+#pragma unroll
+        for (int off = 1; off < 32; off *= 2) {
+            const uint32_t x = __shfl_up_sync(FULL_MASK, v, off);
+            v += lane >= off ? x : 0u;
+        }
+        c[j] = i < NUM_CUM ? (uint32_t)i + carry + v - own : MODEL_PAD;
+        carry += __shfl_sync(FULL_MASK, v, 31);
     }
 }
 
@@ -159,7 +142,7 @@ __device__ __forceinline__ uint32_t div_by_total(uint32_t x, uint2 magic) {  // 
     return __umulhi(x, magic.x) >> magic.y;
 }
 
-// The encoder's model (kernel A; kernel I's next). Until it freezes, C's
+// The encoder's model (kernels A and I). Until it freezes, C's
 // layout: cum[i] for a warp-uniform i in [0, NUM_CUM) is register i >> 5 of
 // lane i & 31, taken by a tree of selects on the bits of i >> 5 (depth 4,
 // no local memory) and a shuffle from its owner. The encoder knows its

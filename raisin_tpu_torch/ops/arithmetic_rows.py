@@ -444,7 +444,29 @@ def _encode_events_torch(symbols: torch.Tensor, lengths: torch.Tensor):
     B, S = symbols.shape
     if S == 0:
         return torch.zeros((B, 0, EVENT_SLOTS), dtype=torch.uint8, device=dev), torch.zeros((B, 0), dtype=torch.int32, device=dev)
-    model = torch.stack(_model_tables(symbols, lengths))  # (3, B, S): lower, upper, total
+    ks, ms, lows = _coder_shifts(torch.stack(_model_tables(symbols, lengths)))
+
+    j = torch.arange(EVENT_SLOTS, dtype=torch.int64, device=dev)
+    bit = (lows[..., None] >> (15 - j)) & 1
+    first = (j == 0).to(torch.int64) << 5
+    slots = torch.where(j < ks[..., None], 0x80 | (bit << 6) | first, 0).to(torch.uint8)
+    # the pending count a step carries: the E3 shifts from the last emitting step before it on
+    emit = ks > 0
+    steps = torch.arange(S, dtype=torch.int64, device=dev)
+    e3_before = ms.cumsum(1) - ms
+    last = torch.where(emit, steps, 0).cummax(1).values
+    last = torch.nn.functional.pad(last[:, :-1], (1, 0))  # the last emitting step before t, 0 if none
+    carried = e3_before - e3_before.gather(1, last)
+    slot0 = torch.where(emit, carried, 0).to(torch.int32)
+    return slots, slot0
+
+
+@torch.inference_mode()
+def _coder_shifts(model: torch.Tensor) -> torch.Tensor:
+    """The plain version's loop over the coder's steps, on the model's (lower,
+    upper, total) (3, B, S): (E1/E2 shifts k, E3 shifts m, narrowed low) (3, B, S) int64."""
+    dev = model.device
+    _, B, S = model.shape
     k16, e3, fill = _renorm_tables(dev)
     low = torch.zeros(B, dtype=torch.int64, device=dev)
     high = torch.full((B,), MAX_CODE, dtype=torch.int64, device=dev)
@@ -466,21 +488,7 @@ def _encode_events_torch(symbols: torch.Tensor, lengths: torch.Tensor):
             ms.append(m)
             lows.append(nl)
         kml[:, :, a : a + STEP_CHUNK] = torch.stack([torch.stack(v, 1) for v in (ks, ms, lows)])
-    ks, ms, lows = kml
-
-    j = torch.arange(EVENT_SLOTS, dtype=torch.int64, device=dev)
-    bit = (lows[..., None] >> (15 - j)) & 1
-    first = (j == 0).to(torch.int64) << 5
-    slots = torch.where(j < ks[..., None], 0x80 | (bit << 6) | first, 0).to(torch.uint8)
-    # the pending count a step carries: the E3 shifts from the last emitting step before it on
-    emit = ks > 0
-    steps = torch.arange(S, dtype=torch.int64, device=dev)
-    e3_before = ms.cumsum(1) - ms
-    last = torch.where(emit, steps, 0).cummax(1).values
-    last = torch.nn.functional.pad(last[:, :-1], (1, 0))  # the last emitting step before t, 0 if none
-    carried = e3_before - e3_before.gather(1, last)
-    slot0 = torch.where(emit, carried, 0).to(torch.int32)
-    return slots, slot0
+    return kml
 
 
 def encode_events(symbols: torch.Tensor, lengths: torch.Tensor):
@@ -496,6 +504,9 @@ def encode_events(symbols: torch.Tensor, lengths: torch.Tensor):
     bit << 6 | first << 5 | in_pend`` where it emitted and 0 where not;
     ``slot0[b, t]`` is the carried pending count that the step's first
     emission flushes. Every step past a block's EOF gives zeros.
+
+    On the card one call launches the kernel's three passes (the model, the
+    coder's chain, the records) over a workspace of B * S int32 words.
     """
     if symbols.device.type == "cpu":
         return _encode_events_torch(symbols, lengths)
@@ -506,11 +517,12 @@ def encode_events(symbols: torch.Tensor, lengths: torch.Tensor):
     slot0 = torch.empty((B, S), dtype=torch.int32, device=dev)
     if B == 0 or S == 0:
         return slots, slot0
+    words = torch.empty((B, S), dtype=torch.int32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         encode_events.launches += 1
         rc = lib.rsn_arith_events(
-            symbols.data_ptr(), lengths.data_ptr(), slots.data_ptr(), slot0.data_ptr(),
+            symbols.data_ptr(), lengths.data_ptr(), slots.data_ptr(), slot0.data_ptr(), words.data_ptr(),
             B, S, _build.stream_handle(dev),
         )
     _build.check("rsn_arith_events", rc)

@@ -1,14 +1,18 @@
-// Host emulation of the CUDA features that kernels A and C
-// (csrc/arith_encode.cu, csrc/arith_decode.cu) use, so that their sources
-// compile with g++ and run on the CPU in the tests: each warp's 32 lanes run
-// as 32 threads, and the warp intrinsics (shuffles and reductions) exchange
-// values through a barrier. Only warp-uniform control flow around an
-// intrinsic is supported, which is all the kernels have. Launches run the
-// grid's warps one after another.
+// Host emulation of the CUDA features that kernels A, C and I
+// (csrc/arith_encode.cu, csrc/arith_decode.cu, csrc/arith_events.cu) use, so
+// that their sources compile with g++ and run on the CPU in the tests: each
+// thread of a CTA runs as a thread of its own, all of a CTA's threads at
+// once; the warp intrinsics (shuffles, reductions, __syncwarp) exchange
+// values through a barrier of the warp's 32 lanes, and __syncthreads is a
+// barrier of the CTA's threads. Only warp-uniform control flow around a warp
+// intrinsic, and CTA-uniform control flow around __syncthreads, is
+// supported, which is all the kernels have. Shared memory is a static
+// variable: the grid's CTAs run one after another.
 #pragma once
 #include <algorithm>
 #include <barrier>
 #include <cstdint>
+#include <memory>
 #include <thread>
 #include <vector>
 
@@ -18,25 +22,32 @@
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __restrict__
+#define __shared__ static
 
 struct dim3e { unsigned x = 0, y = 0, z = 0; };
 inline thread_local dim3e threadIdx, blockIdx;
 inline dim3e blockDim, gridDim;
 struct uint2 { unsigned x, y; };
 inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
+struct uint4 { unsigned x, y, z, w; };
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 inline int cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "no error (host emulation)"; }
 using std::max;
 using std::min;
-inline void __syncwarp() {}
 
 struct WarpExchange {
     std::barrier<> bar{32};
     unsigned slot[32];
 };
 inline thread_local WarpExchange* g_warp = nullptr;
+inline thread_local std::barrier<>* g_cta = nullptr;
+
+inline void __syncwarp(unsigned = 0xFFFFFFFFu) { g_warp->bar.arrive_and_wait(); }
+inline void __syncthreads() { g_cta->arrive_and_wait(); }
+inline unsigned atomicAdd(unsigned* p, unsigned v) { return __atomic_fetch_add(p, v, __ATOMIC_RELAXED); }
 
 inline unsigned lane_id() { return threadIdx.x & 31; }
 template <class F>
@@ -49,6 +60,10 @@ inline unsigned exchange(unsigned v, F f) {
 }
 inline unsigned __shfl_sync(unsigned, unsigned v, int src) {
     return exchange(v, [&](unsigned* s) { return s[src & 31]; });
+}
+inline unsigned __shfl_up_sync(unsigned, unsigned v, unsigned delta) {
+    const unsigned lane = lane_id();
+    return exchange(v, [&](unsigned* s) { return lane >= delta ? s[lane - delta] : s[lane]; });
 }
 inline unsigned __reduce_max_sync(unsigned, unsigned v) {
     return exchange(v, [](unsigned* s) { return *std::max_element(s, s + 32); });
@@ -66,24 +81,27 @@ inline unsigned __funnelshift_lc(unsigned lo, unsigned hi, unsigned sh) {
 template <class T>
 inline T __ldg(const T* p) { return *p; }
 
-// Run a kernel: every block of the grid, one warp at a time, its 32 lanes as threads.
+// Run a kernel: the CTAs of the grid one after another, all threads of a CTA at
+// once. The threads are made once a launch and run every CTA, meeting at a
+// barrier between two CTAs.
 template <class K, class... A>
 void emu_launch(K kernel, unsigned grid, unsigned block, A... args) {
     gridDim.x = grid;
     blockDim.x = block;
-    for (unsigned b = 0; b < grid; ++b) {
-        for (unsigned w = 0; w < (block + 31) / 32; ++w) {
-            WarpExchange ex;
-            std::vector<std::thread> lanes;
-            for (unsigned l = 0; l < 32; ++l) {
-                lanes.emplace_back([&, l] {
-                    threadIdx.x = w * 32 + l;
-                    blockIdx.x = b;
-                    g_warp = &ex;
-                    kernel(args...);
-                });
+    const auto warps = std::make_unique<WarpExchange[]>((block + 31) / 32);
+    std::barrier<> cta((std::ptrdiff_t)block);
+    std::vector<std::thread> threads;
+    for (unsigned l = 0; l < block; ++l) {
+        threads.emplace_back([&, l] {
+            threadIdx.x = l;
+            g_warp = &warps[l / 32];
+            g_cta = &cta;
+            for (unsigned b = 0; b < grid; ++b) {
+                blockIdx.x = b;
+                kernel(args...);
+                cta.arrive_and_wait();
             }
-            for (auto& t : lanes) t.join();
-        }
+        });
     }
+    for (auto& t : threads) t.join();
 }

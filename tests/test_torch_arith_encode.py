@@ -258,10 +258,10 @@ def _check(symbols, lengths, capw=None):
     return raw, bits, oflow, stats
 
 
-def _straddling(n: int, release: list[int]) -> bytes:
-    """n symbols, each chosen so that its interval straddles the half (no E1/E2 shift,
-    the most E3 shifts): the pending run grows by ~8 bits a step. Then ``release``,
-    whose first symbol ends the run. The reference coder, in Python."""
+def _straddling(n: int, release: list[int], prefix: bytes = b"") -> bytes:
+    """``prefix``, then n symbols, each chosen so that its interval straddles the half (no
+    E1/E2 shift, the most E3 shifts): the pending run grows by ~8 bits a step. Then
+    ``release``, whose first symbol ends the run. The reference coder, in Python."""
     cum = list(range(ar.NUM_CUM))
     low, high, out = 0, ar.MAX_CODE, []
 
@@ -283,6 +283,8 @@ def _straddling(n: int, release: list[int]) -> bytes:
             cum[i] += 1
         out.append(s)
 
+    for s in prefix:
+        code(s)
     for _ in range(n):
         straddle = [s for s in range(256) if narrow(s)[0] < 0x8000 <= narrow(s)[1]]
         code(max(straddle, key=lambda s: narrow(s)[1] - narrow(s)[0]) if straddle else 0)
