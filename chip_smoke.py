@@ -6,6 +6,7 @@
     python3 chip_smoke.py --encode   # kernel A alone: build, then time_encode
     python3 chip_smoke.py --decode   # kernel C alone: build, then time_decode without the plain version
     python3 chip_smoke.py --events   # kernel I alone: build, then time_events without the plain version
+    python3 chip_smoke.py --hdecode  # kernel H alone: build, then time_hdecode without the plain version
     python3 chip_smoke.py --paths    # phase 3 alone: the main paths and the streams, without traces
 
 Phases, each printing one line; any failure exits nonzero before the
@@ -24,7 +25,9 @@ result line:
    tokens) and on blocks whose escaped bytes outgrow shared memory, at
    windows 4096 and 16384 (D's device-memory sweep); G
    Huffman encode and H Huffman decode on the ASCII edge blocks, a block
-   whose longest code has 21 bits, a single-symbol block and kernel E's
+   whose longest code has 21 bits, a single-symbol block, uniform random
+   ASCII (7-bit codes), two symbols (1-bit codes), four blocks over
+   several of H's spans and kernel E's
    token streams at windows 16 and 4096, while the non-ASCII edge blocks
    take the host split, are counted and equal the port's copy of the
    oracle;
@@ -78,7 +81,11 @@ result line:
    shape, the stream's shape, and MAIN_BYTES of zero bytes and of random
    bytes in 64 KiB blocks, each held exactly against its plain version; its
    tile counters must show the chain path on the corpus, the stream and
-   the random bytes, and the sweep path on the zeros.
+   the random bytes, and the sweep path on the zeros. Kernel H is held
+   against its plain version at the lzss,huffman container's shape, at the
+   huffman stream's (B = 1) and on uniform random ASCII in 64 KiB blocks
+   (the plain version on the first PLAIN_BLOCKS), with the device ms of
+   its three kernels at the first two shapes.
 
 ``--match`` runs phase 1 and then only kernel D on its four inputs, with a
 digest of its output per input and no plain version; ``--encode`` and
@@ -86,7 +93,10 @@ digest of its output per input and no plain version; ``--encode`` and
 for kernel I on ``EVENTS_INPUTS`` (the 1 MiB stream, the 1 MiB
 lzss,arithmetic stream's tokens, 1 MiB of random bytes and of zeros, each
 at B = 1, and the arithmetic container's shape), with each device
-kernel's ms from the profiler; ``--paths`` runs phase 1 and then
+kernel's ms from the profiler; ``--hdecode`` does the same for kernel H
+on ``HDECODE_INPUTS`` (the lzss,huffman and huffman containers' rows,
+the 1 MiB huffman stream at B = 1, uniform random ASCII at both shapes),
+each checked to give back its blocks; ``--paths`` runs phase 1 and then
 phase 3 without its traces. Copied into another checkout of the
 repository (an earlier commit, say), the script measures that tree's code
 the same way, so two trees compare on one card; equal digests mean equal
@@ -654,6 +664,12 @@ def huffman_stages(x, n, tag: str) -> dict:
     return {"huffman_encode": err_g, "huffman_decode": err_h}
 
 
+def uniform_ascii(n: int) -> bytes:
+    """Seeded uniform random bytes 0..127: every code of their tree has 7 bits, so walks from
+    different bits never resynchronise."""
+    return np.random.default_rng(23).integers(0, 128, n, dtype=np.uint8).tobytes()
+
+
 def fibonacci_block(symbols: int = 22) -> bytes:
     """A shuffled block whose symbol counts are Fibonacci numbers: its longest code has symbols - 1 bits."""
     fib = [1, 1]
@@ -668,21 +684,34 @@ def phase_huffman_vs_plain(dev) -> None:
     """Phase 2, Huffman: kernels G, H equal their plain versions on edge cases."""
     import torch
 
+    import bench
     from raisin_tpu_torch.formats import huffman as hf
-    from raisin_tpu_torch.ops import escape, huffman_blocks, lzss_commit, lzss_match
+    from raisin_tpu_torch.ops import escape, huffman_blocks, huffman_rows, lzss_commit, lzss_match
 
     edge = [b for b in edge_blocks() if b]
     ascii_blocks = [b for b in edge if max(b) < 0x80]
     fib = fibonacci_block()
     longest = max(len(c) for c in hf.print_codes(hf.build_tree({s: fib.count(s) for s in set(fib)}))[1])
     check(longest >= 20, f"the Fibonacci block's longest code has {longest} bits")
-    blocks = ascii_blocks + [fib, b"s" * 1000]
+    rng = np.random.default_rng(29)
+    two = bytes(rng.choice(np.frombuffer(b"ab", np.uint8), 2001))
+    blocks = ascii_blocks + [fib, b"s" * 1000, uniform_ascii(2043), two]
     m, n = padded(blocks)
     x, n = torch.from_numpy(m).to(dev), torch.from_numpy(n).to(dev)
     huffman_stages(x, n, "edge blocks")
     print(f"phase kernels G (huffman encode), H (huffman decode) vs plain: equal on {len(ascii_blocks)} ASCII "
-          f"edge blocks, a block with a {longest}-bit code and a single-symbol block, H restores them, "
-          f"max_abs_err 0", flush=True)
+          f"edge blocks, a block with a {longest}-bit code, a single-symbol block, uniform ASCII (7-bit codes) "
+          f"and two symbols (1-bit codes), H restores them, max_abs_err 0", flush=True)
+    # blocks over several of kernel H's spans (huffman_rows.SUB_BITS * SPAN_SUBS bits each), so its
+    # chain repairs a span's first entry from the exit of the one before
+    span = huffman_rows.SUB_BITS * huffman_rows.SPAN_SUBS
+    blocks = [uniform_ascii(50_001), bytes(rng.choice(np.frombuffer(b"ab", np.uint8), 300_007)),
+              bench.make_corpus(90_007), fibonacci_block(24)]
+    m, n = padded(blocks)
+    x, n = torch.from_numpy(m).to(dev), torch.from_numpy(n).to(dev)
+    huffman_stages(x, n, "blocks over several spans")
+    print(f"phase kernels G, H vs plain on 4 blocks of 2-4 spans of {span} bits (uniform ASCII, two symbols, the "
+          f"corpus, a 23-bit code): equal, max_abs_err 0", flush=True)
 
     m, n = padded(ascii_blocks)
     xe, en = escape.escape_blocks(torch.from_numpy(m).to(dev), torch.from_numpy(n).to(dev))
@@ -834,7 +863,7 @@ def phase_stream(data: bytes, wrappers: dict, reset, card: str, dev, trace: bool
             f"phase stream {name}: compress_bytes of {len(data)} B on the card, {len(c)} B out"
             f"{' = ORACLE_STREAM' if name in ORACLE_STREAM else ''}; over {TIMED_RUNS} runs compress MB/s "
             f"median {np.median(mbs):.3f} (min {mbs[0]:.3f}, max {mbs[-1]:.3f}); decompress_bytes round trip "
-            f"exact in {t_dec:.2f} s (its launches {({k: fn.launches for k, fn in wrappers.items() if fn.launches})}, "
+            f"exact in {t_dec * 1e3:.1f} ms (its launches {({k: fn.launches for k, fn in wrappers.items() if fn.launches})}, "
             f"Huffman host split {dict(huffman_blocks.host_split)}); launches of the first run {got}; card {card}",
             flush=True,
         )
@@ -1405,6 +1434,147 @@ def phase_timing_huffman(data: bytes, tok_lens: list[int], dev) -> dict:
     return results
 
 
+def huffman_rows_of(x, n) -> tuple:
+    """Blocks (x, n) on the card coded as the container codes them (counts, host trees,
+    kernel G): kernel H's arguments (payload rows, pads, byte lengths, child tables, cap_out)."""
+    import torch
+
+    from raisin_tpu_torch.ops import huffman_blocks, huffman_rows
+
+    counts = huffman_blocks.count_symbols(x, n)
+    codes, code_lens, _, on_host = huffman_blocks.code_tables(counts)
+    check(not on_host.any(), "a block for kernel H is not ASCII")
+    want = ((counts[:, : huffman_rows.NSYM] * code_lens).sum(1) + 7) // 8
+    capw = max(1, (int(want.max()) + 3) // 4)
+    codes_t = torch.from_numpy(codes.view(np.int32)).to(x.device)
+    rows, bl, pads = huffman_rows.encode_rows(x, n, codes_t, torch.from_numpy(code_lens).to(x.device), capw)
+    tables = torch.from_numpy(child_tables(counts)).to(x.device)
+    return rows, pads, bl, tables, -(-int(n.max()) // 4) * 4
+
+
+# kernel H's inputs: the lzss,huffman container's token rows and the huffman container's
+# blocks of the corpus (MAIN_BYTES in BLOCK_SIZE blocks), the huffman stream (STREAM_BYTES at
+# B = 1), and uniform random ASCII, whose 7-bit codes never resynchronise, at both shapes
+HDECODE_INPUTS = ("lzss,huffman container", "huffman container", "huffman stream", "uniform ASCII stream",
+                  "uniform ASCII container")
+
+
+def hdecode_input(name: str, data: bytes, dev):
+    """One of HDECODE_INPUTS: ((x, n) the blocks on ``dev``, kernel H's arguments)."""
+    import torch
+
+    from raisin_tpu_torch.ops import escape, lzss_commit, lzss_match
+
+    def blocks(src: bytes, size: int):
+        m, n = padded([src[i : i + size] for i in range(0, len(src), size)])
+        return torch.from_numpy(m).to(dev), torch.from_numpy(n).to(dev)
+
+    if name == "lzss,huffman container":
+        xe, en = escape.escape_blocks(*blocks(data, BLOCK_SIZE))
+        L, D = lzss_match.find_matches(xe, en, WINDOW)
+        x, n = lzss_commit.commit_tokens(xe, L, D, en)
+    else:
+        x, n = {
+            "huffman container": lambda: blocks(data, BLOCK_SIZE),
+            "huffman stream": lambda: blocks(data[:STREAM_BYTES], STREAM_BYTES),
+            "uniform ASCII stream": lambda: blocks(uniform_ascii(STREAM_BYTES), STREAM_BYTES),
+            "uniform ASCII container": lambda: blocks(uniform_ascii(MAIN_BYTES), BLOCK_SIZE),
+        }[name]()
+    return (x, n), huffman_rows_of(x, n)
+
+
+def check_restored(x, n, out, cnt, ok, what: str) -> None:
+    """Kernel H gave back the blocks: every count, every walk ending on a boundary, every byte."""
+    import torch
+
+    w = min(x.shape[1], out.shape[1])
+    inside = torch.arange(w, device=x.device)[None, :] < n[:, None]
+    check(bool(ok.all()) and torch.equal(cnt, n.to(cnt.dtype)), f"kernel H did not end every walk at the root ({what})")
+    check(torch.equal(out[:, :w][inside], x[:, :w][inside]), f"kernel H did not restore the blocks ({what})")
+
+
+def time_hdecode(data: bytes, dev) -> dict:
+    """Kernel H on each of HDECODE_INPUTS, without its plain version.
+
+    Per input: the rows' shape, ms per call (CUDA events over 3, after a
+    warm-up), the device ms of each kernel one call launches (the
+    profiler's names), and a digest of (rows, counts, ok) (equal digests
+    from two trees mean equal outputs); each must give back its blocks.
+    """
+    import torch
+
+    from raisin_tpu_torch.ops import huffman_rows
+
+    out = {}
+    for name in HDECODE_INPUTS:
+        (x, n), args = hdecode_input(name, data, dev)
+        huffman_rows.decode_rows(*args)  # warm-up
+        ms = cuda_ms(lambda: huffman_rows.decode_rows(*args), 3)
+        passes = device_kernel_ms(lambda: huffman_rows.decode_rows(*args))
+        rows, cnt, ok = huffman_rows.decode_rows(*args)
+        check_restored(x, n, rows, cnt, ok, name)
+        h = hashlib.sha256(rows.cpu().numpy())
+        h.update(cnt.cpu().numpy())
+        h.update(ok.cpu().numpy())
+        payload = int(args[2].to(torch.int64).sum())
+        out[name] = {"shape": list(args[0].shape), "payload_bytes": payload, "ms": ms, "device_kernels_ms": passes,
+                     "digest": h.hexdigest()[:32]}
+        print(f"phase hdecode {name} {list(args[0].shape)}, {payload} payload bytes: kernel {ms:.4f} ms, digest "
+              f"{out[name]['digest']}, device ms by kernel (profiler) {json.dumps(passes)}", flush=True)
+        del x, n, args, rows
+    return out
+
+
+def hdecode_result(args, toks: float, plain_rows: int | None = None) -> dict:
+    """Kernel H on ``args`` beside its plain version on the card (on the first ``plain_rows`` rows
+    only, where given): _result's keys, the kernel's ms on all rows."""
+    import torch
+
+    from raisin_tpu_torch.ops import huffman_rows
+
+    rows, pads, bl, tables, cap_out = args
+    ms = cuda_ms(lambda: huffman_rows.decode_rows(*args), 3)
+    k = plain_rows or rows.shape[0]
+    part = (rows[:k].contiguous(), pads[:k].contiguous(), bl[:k].contiguous(), tables[:k].contiguous(), cap_out)
+    got = huffman_rows.decode_rows(*part)
+    want, plain = plain_ms(lambda: huffman_rows._decode_rows_torch(*part))
+    B = rows.shape[0]
+    payload = float(bl.to(torch.int64).sum())
+    # as phase_timing_huffman's bound: payload and tables in, tokens out; a table step a symbol
+    return _result(max_abs_err(*zip(got, want)), ms, plain, payload + 4 * huffman_rows.NTAB * B + toks + 8 * B,
+                   4 * toks)
+
+
+def phase_timing_hdecode(data: bytes, dev) -> dict:
+    """Phase 4, kernel H beyond the container's shape: the huffman stream's shape (B = 1) and
+    uniform ASCII's container shape (its plain version on the first PLAIN_BLOCKS rows) beside
+    the plain version, and each device kernel's ms at the container's and the stream's shapes."""
+    import torch
+
+    from raisin_tpu_torch.ops import huffman_rows
+
+    out = {}
+    for name, key, plain_rows in (("huffman stream", "stream", None), ("uniform ASCII container", "uniform_ascii",
+                                                                       PLAIN_BLOCKS)):
+        (x, n), args = hdecode_input(name, data, dev)
+        r = hdecode_result(args, float(n.to(torch.int64).sum()), plain_rows)
+        check(r["max_abs_err"] == 0, f"kernel H differs from its plain version on the {name} (err {r['max_abs_err']})")
+        check_restored(x, n, *huffman_rows.decode_rows(*args), name)
+        out[key] = r
+        print(f"phase timing huffman_decode on the {name} {list(args[0].shape)}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.1f} ms{' on the first %d rows' % plain_rows if plain_rows else ''}, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err {r['max_abs_err']}", flush=True)
+        del x, n, args
+    passes = {}
+    for name in ("lzss,huffman container", "huffman stream"):
+        _, args = hdecode_input(name, data, dev)
+        passes[name] = device_kernel_ms(lambda: huffman_rows.decode_rows(*args))
+        del args
+    out["device_kernels_ms"] = passes
+    print(f"phase timing huffman_decode, device ms by kernel (profiler): {json.dumps(passes)}", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1461,6 +1631,10 @@ def main() -> int:
         events = time_events(bench.make_corpus(MAIN_BYTES), dev)
         print(json.dumps({"card": smi, "arith_events": events}))
         return 0
+    if sys.argv[1:] == ["--hdecode"]:  # kernel H alone on its five inputs, no plain version
+        hdecode = time_hdecode(bench.make_corpus(MAIN_BYTES), dev)
+        print(json.dumps({"card": smi, "huffman_decode": hdecode}))
+        return 0
     if sys.argv[1:] == ["--paths"]:  # phase 3 alone: the main paths and the streams, no traces
         data = bench.make_corpus(MAIN_BYTES)
         for algorithms, wrappers in ((("arithmetic",), arith), (LZ, {**arith, **lz}), (LZ_HUFF, {**lz, **huff}),
@@ -1509,6 +1683,7 @@ def main() -> int:
     results = phase_timing_arith(ar, data, payloads, dev)
     results.update(phase_timing_lzss(data, aux[0], dev))
     results.update(phase_timing_huffman(data, lh_aux[0], dev))
+    results["huffman_decode"].update(phase_timing_hdecode(data, dev))
     results.update(phase_timing_events(ar, data[:STREAM_BYTES], dev))
     results["arith_events"]["device_kernels_ms"] = passes
     for name, r in results.items():

@@ -39,6 +39,9 @@ from raisin_tpu_torch.ops.arithmetic_rows import _check_cuda
 NSYM = 128  # ASCII symbols; the container sends other blocks to the host oracle
 MAX_CODE_BITS = 32
 NTAB = 64  # child-table words: 127 internal nodes x 2 children, one byte each
+# kernel H's subsequences (csrc/huffman_decode.cu, which holds the same numbers)
+SUB_BITS = 1024  # bits a subsequence, one thread's
+SPAN_SUBS = 256  # subsequences a CTA
 
 
 # ---------------------------------------------------------------------------
@@ -198,9 +201,16 @@ def _decode_rows_torch(payload_rows, pads, byte_lens, tables, cap_out: int):
     return rows[:, :cap_out].contiguous(), counts.to(torch.int32), ok.to(torch.int32)
 
 
+def workspace_bytes(B: int, capb: int) -> int:
+    """Kernel H's workspace for B rows of capb bytes: 16 bytes for each of its subsequences."""
+    subs = -(-8 * capb // SUB_BITS)
+    spans = max(1, -(-subs // SPAN_SUBS))
+    return 16 * B * spans * SPAN_SUBS
+
+
 def decode_rows(payload_rows: torch.Tensor, pads: torch.Tensor, byte_lens: torch.Tensor, tables: torch.Tensor,
                 cap_out: int):
-    """Bit-serial Huffman decode of B payload rows (kernel H, or its plain version).
+    """Huffman decode of B payload rows (kernel H, or its plain version).
 
     Args:
       payload_rows: (B, capb) uint8; row b's first ``byte_lens[b]`` bytes are
@@ -231,12 +241,13 @@ def decode_rows(payload_rows: torch.Tensor, pads: torch.Tensor, byte_lens: torch
     ok = torch.ones(B, dtype=torch.int32, device=dev)
     if B == 0:
         return rows, counts, ok
+    work = torch.empty(workspace_bytes(B, capb) // 8, dtype=torch.int64, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         decode_rows.launches += 1
         rc = lib.rsn_huffman_decode(
             payload_rows.data_ptr(), pads.data_ptr(), byte_lens.data_ptr(), tables.data_ptr(),
-            rows.data_ptr(), counts.data_ptr(), ok.data_ptr(), B, capb, cap_out,
+            rows.data_ptr(), counts.data_ptr(), ok.data_ptr(), work.data_ptr(), B, capb, cap_out,
             _build.stream_handle(dev),
         )
     _build.check("rsn_huffman_decode", rc)

@@ -1,10 +1,12 @@
-// Host emulation of the CUDA features that kernels A, C and I
-// (csrc/arith_encode.cu, csrc/arith_decode.cu, csrc/arith_events.cu) use, so
+// Host emulation of the CUDA features that kernels A, C, H and I
+// (csrc/arith_encode.cu, csrc/arith_decode.cu, csrc/huffman_decode.cu,
+// csrc/arith_events.cu) use, so
 // that their sources compile with g++ and run on the CPU in the tests: each
 // thread of a CTA runs as a thread of its own, all of a CTA's threads at
 // once; the warp intrinsics (shuffles, reductions, __syncwarp) exchange
 // values through a barrier of the warp's 32 lanes, and __syncthreads is a
-// barrier of the CTA's threads. Only warp-uniform control flow around a warp
+// barrier of the CTA's threads (__syncthreads_or also ORs a predicate over
+// them). Only warp-uniform control flow around a warp
 // intrinsic, and CTA-uniform control flow around __syncthreads, is
 // supported, which is all the kernels have. Shared memory is a static
 // variable: the grid's CTAs run one after another.
@@ -22,6 +24,7 @@
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __restrict__
+#define __align__(n) __attribute__((aligned(n)))
 #define __shared__ static
 
 struct dim3e { unsigned x = 0, y = 0, z = 0; };
@@ -47,7 +50,24 @@ inline thread_local std::barrier<>* g_cta = nullptr;
 
 inline void __syncwarp(unsigned = 0xFFFFFFFFu) { g_warp->bar.arrive_and_wait(); }
 inline void __syncthreads() { g_cta->arrive_and_wait(); }
+inline int g_cta_or = 0;  // the CTA's predicate of __syncthreads_or
+inline int __syncthreads_or(int pred) {
+    if (pred) __atomic_store_n(&g_cta_or, 1, __ATOMIC_RELAXED);
+    g_cta->arrive_and_wait();
+    const int r = __atomic_load_n(&g_cta_or, __ATOMIC_RELAXED);
+    g_cta->arrive_and_wait();
+    if (threadIdx.x == 0) __atomic_store_n(&g_cta_or, 0, __ATOMIC_RELAXED);
+    g_cta->arrive_and_wait();
+    return r;
+}
 inline unsigned atomicAdd(unsigned* p, unsigned v) { return __atomic_fetch_add(p, v, __ATOMIC_RELAXED); }
+inline unsigned atomicOr(unsigned* p, unsigned v) { return __atomic_fetch_or(p, v, __ATOMIC_RELAXED); }
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {  // byte k of the result: byte (s >> 4k) & 7 of y:x
+    const unsigned long long v = ((unsigned long long)y << 32) | x;
+    unsigned r = 0;
+    for (int k = 0; k < 4; ++k) r |= (unsigned)((v >> (8 * ((s >> (4 * k)) & 7))) & 0xFF) << (8 * k);
+    return r;
+}
 
 inline unsigned lane_id() { return threadIdx.x & 31; }
 template <class F>
@@ -72,6 +92,7 @@ inline unsigned __reduce_min_sync(unsigned, unsigned v) {
     return exchange(v, [](unsigned* s) { return *std::min_element(s, s + 32); });
 }
 inline int __clz(int x) { return x == 0 ? 32 : __builtin_clz((unsigned)x); }
+inline int __ffs(int x) { return __builtin_ffs(x); }
 inline unsigned __umulhi(unsigned a, unsigned b) { return (unsigned)(((unsigned long long)a * b) >> 32); }
 inline unsigned __funnelshift_lc(unsigned lo, unsigned hi, unsigned sh) {
     sh = sh > 32 ? 32 : sh;
