@@ -7,6 +7,7 @@
     python3 chip_smoke.py --decode   # kernel C alone: build, then time_decode without the plain version
     python3 chip_smoke.py --events   # kernel I alone: build, then time_events without the plain version
     python3 chip_smoke.py --hdecode  # kernel H alone: build, then time_hdecode without the plain version
+    python3 chip_smoke.py --commit   # kernel E alone: build, then time_commit without the plain version
     python3 chip_smoke.py --paths    # phase 3 alone: the main paths and the streams, without traces
 
 Phases, each printing one line; any failure exits nonzero before the
@@ -46,7 +47,10 @@ result line:
    torch.profiler for the time breakdown (host ms per stage range, device
    ms per kernel and copy, and the device's busy share of each call).
    ``("huffman",)`` and ``("lzss",)`` round-trip the same 64 MiB the same
-   way, without the trace. Then the stream path: the engine's
+   way, without the trace, and one ``lzss,arithmetic`` container of
+   WIDE_BYTES at window WIDE_WINDOW must carry no aux table (as the JAX
+   package writes it above window 8191) and round-trip through its
+   per-block host decode. Then the stream path: the engine's
    ``compress_bytes(data, algorithms, backend="device")`` on the first
    STREAM_BYTES of the corpus for ``lzss,arithmetic``, ``arithmetic``,
    ``huffman`` and ``lzss`` (one block each, so each kernel runs on one
@@ -85,7 +89,9 @@ result line:
    against its plain version at the lzss,huffman container's shape, at the
    huffman stream's (B = 1) and on uniform random ASCII in 64 KiB blocks
    (the plain version on the first PLAIN_BLOCKS), with the device ms of
-   its three kernels at the first two shapes.
+   its three kernels at the first two shapes. Kernel E is held against its
+   plain version at the container's shape and at the lzss,arithmetic
+   stream's (B = 1), with the device ms of its three kernels at both.
 
 ``--match`` runs phase 1 and then only kernel D on its four inputs, with a
 digest of its output per input and no plain version; ``--encode`` and
@@ -96,8 +102,13 @@ at B = 1, and the arithmetic container's shape), with each device
 kernel's ms from the profiler; ``--hdecode`` does the same for kernel H
 on ``HDECODE_INPUTS`` (the lzss,huffman and huffman containers' rows,
 the 1 MiB huffman stream at B = 1, uniform random ASCII at both shapes),
-each checked to give back its blocks; ``--paths`` runs phase 1 and then
-phase 3 without its traces. Copied into another checkout of the
+each checked to give back its blocks; ``--commit`` does the same for
+kernel E on ``COMMIT_INPUTS`` (the corpus and zeros at the container's
+shape and at the 1 MiB stream's, B = 1, MAIN_BYTES of random bytes in
+64 KiB blocks, each with L and D from kernel D, and the field L = 2 after
+a literal at both shapes); ``--paths`` runs phase 1 and then
+phase 3 without its traces and without the WIDE_WINDOW container (an
+earlier tree writes an aux table there). Copied into another checkout of the
 repository (an earlier commit, say), the script measures that tree's code
 the same way, so two trees compare on one card; equal digests mean equal
 outputs.
@@ -155,6 +166,9 @@ ORACLE_BLOCKS_HUFF = {
     1023: ("63f616a552d407d5841d9c0319a2bc3a", 43926, 23864, "713c5178e361512c98a2d8696ae829f2"),
 }
 LZ_HUFF = ("lzss", "huffman")
+# phase 3's container above window 8191: the corpus's first WIDE_BYTES in BLOCK_SIZE blocks
+WIDE_WINDOW = 16384
+WIDE_BYTES = 384 << 10
 # The stream phase: the engine's single-stream codecs on the first
 # STREAM_BYTES of the corpus (bench.make_corpus(STREAM_BYTES), the same
 # bytes). Pipeline -> (sha256 of the input, output length, sha256 of the
@@ -800,6 +814,28 @@ def phase_main(data: bytes, algorithms: tuple[str, ...], wrappers: dict, reset, 
     return launches, c, tiles
 
 
+def phase_wide_window(data: bytes, dev) -> None:
+    """Phase 3: an lzss,arithmetic container above window 8191 through the entry points. It
+    carries no aux table, as the JAX package writes it, and decodes block by block on the host."""
+    from raisin_tpu_torch.parallel import blocks
+
+    part = data[:WIDE_BYTES]
+    t0 = time.perf_counter()
+    c = blocks.compress_container(part, LZ, block_size=BLOCK_SIZE, window=WIDE_WINDOW, device=dev)
+    t_enc = time.perf_counter() - t0
+    algorithms, _, orig, payloads, aux, window = blocks.parse_container(c)
+    check((algorithms, orig, window, aux) == (LZ, len(part), WIDE_WINDOW, []),
+          f"the lzss,arithmetic container at window {WIDE_WINDOW} carries an aux table or the wrong header")
+    t0 = time.perf_counter()
+    check(blocks.decompress_container(c, device=dev) == part,
+          f"the lzss,arithmetic container at window {WIDE_WINDOW} did not round-trip")
+    t_dec = time.perf_counter() - t0
+    print(f"phase wide window: lzss,arithmetic container of {len(part)} B at window {WIDE_WINDOW}, "
+          f"{len(payloads)} blocks, no aux table, ratio {len(c) / len(part) * 100:.4f}%; compress "
+          f"{t_enc * 1e3:.1f} ms on the card, decompress {t_dec * 1e3:.1f} ms block by block on the host, "
+          f"round trip exact", flush=True)
+
+
 # the stream path: pipeline -> the kernels each compress must launch
 STREAM_KERNELS = {
     LZ: ("lzss_match", "lzss_commit", "arith_events"),
@@ -1367,7 +1403,17 @@ def phase_timing_lzss(data: bytes, tok_lens: list[int], dev) -> dict:
     results["lzss_commit"] = _result(max_abs_err((tok_k, tok_p), (tl_k, tl_p)), ms_e, plain_e,
                                      9 * esc + toks, 4 * esc)
     check(tl_k.cpu().tolist() == list(tok_lens), "kernel E's token lengths differ from the main path's aux table")
+    passes = {"container": device_kernel_ms(lambda: lzss_commit.commit_tokens(xe, L_k, D_k, en))}
     del L_k, D_k, tok_p
+    args = commit_input("stream", data, dev)
+    r = results["lzss_commit"]["stream"] = commit_result(args)
+    check(r["max_abs_err"] == 0, f"kernel E differs from its plain version on the stream (err {r['max_abs_err']})")
+    print(f"phase timing lzss_commit on the stream {r['shape']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.1f} "
+          f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err {r['max_abs_err']}", flush=True)
+    passes["stream"] = device_kernel_ms(lambda: lzss_commit.commit_tokens(*args))
+    del args
+    results["lzss_commit"]["device_kernels_ms"] = passes
+    print(f"phase timing lzss_commit, device ms by kernel (profiler): {json.dumps(passes)}", flush=True)
 
     steps = int(tl_k.max()) + 1
     tok = torch.nn.functional.pad(tok_k[:, : steps - 1], (0, 1)).contiguous()
@@ -1379,6 +1425,76 @@ def phase_timing_lzss(data: bytes, tok_lens: list[int], dev) -> dict:
                                      toks + esc, 2 * toks)
     check(torch.equal(rows_k[:, : xe.shape[1]], xe) and torch.equal(ol_k, en), "kernel F did not restore the main path's blocks")
     return results
+
+
+# kernel E's timing inputs: the corpus at the container's shape (MAIN_BYTES in BLOCK_SIZE blocks) and
+# at the stream's (STREAM_BYTES at B = 1), zero bytes (a commit every 4096 positions) at both shapes
+# and MAIN_BYTES of seeded random bytes, each escaped with L and D from kernel D at window WINDOW; and
+# the field L = 2 after a literal at position 0 on the corpus's bytes at both shapes (walks from even
+# positions never meet the parse)
+COMMIT_INPUTS = ("corpus", "stream", "zeros", "zeros stream", "random", "L=2 container", "L=2 stream")
+
+
+def commit_input(name: str, data: bytes, dev):
+    """One of COMMIT_INPUTS: kernel E's arguments (x, L, D, lengths) on ``dev``."""
+    import torch
+
+    from raisin_tpu_torch.ops import escape, lzss_match
+
+    if name == "zeros stream":
+        m, n = padded([bytes(STREAM_BYTES)])
+    else:
+        m, n = padded(match_blocks({"L=2 container": "corpus", "L=2 stream": "stream"}.get(name, name), data))
+    xe, en = escape.escape_blocks(torch.from_numpy(m).to(dev), torch.from_numpy(n).to(dev))
+    del m
+    if name.startswith("L=2"):
+        L = torch.full(xe.shape, 2, dtype=torch.int32, device=dev)
+        L[:, 0] = 1
+        return xe, L, torch.ones_like(L), en
+    return (xe, *lzss_match.find_matches(xe, en, WINDOW), en)
+
+
+def commit_result(args) -> dict:
+    """Kernel E on ``args`` beside its plain version on the card: _result's keys and the shape."""
+    import torch
+
+    from raisin_tpu_torch.ops import lzss_commit
+
+    ms = cuda_ms(lambda: lzss_commit.commit_tokens(*args), 3)
+    tok, tl = lzss_commit.commit_tokens(*args)
+    (tok_p, tl_p), plain = plain_ms(lambda: lzss_commit._commit_tokens_torch(*args))
+    esc = float(args[3].to(torch.int64).sum())
+    # as phase_timing_lzss's bound: bytes, L and D in, tokens out
+    return {"shape": list(args[0].shape),
+            **_result(max_abs_err((tok, tok_p), (tl, tl_p)), ms, plain, 9 * esc + float(tl.to(torch.int64).sum()),
+                      4 * esc)}
+
+
+def time_commit(data: bytes, dev) -> dict:
+    """Kernel E on each of COMMIT_INPUTS, without its plain version.
+
+    Per input: the shape, the token bytes, ms per call (CUDA events over 3,
+    after a warm-up), the device ms of each kernel one call launches (the
+    profiler's names), and a digest of (tok, tok_len) (equal digests from
+    two trees mean equal outputs).
+    """
+    from raisin_tpu_torch.ops import lzss_commit
+
+    out = {}
+    for name in COMMIT_INPUTS:
+        args = commit_input(name, data, dev)
+        lzss_commit.commit_tokens(*args)  # warm-up
+        ms = cuda_ms(lambda: lzss_commit.commit_tokens(*args), 3)
+        passes = device_kernel_ms(lambda: lzss_commit.commit_tokens(*args))
+        tok, tl = lzss_commit.commit_tokens(*args)
+        h = hashlib.sha256(tok.cpu().numpy())
+        h.update(tl.cpu().numpy())
+        out[name] = {"shape": list(args[0].shape), "token_bytes": int(tl.sum()), "ms": ms,
+                     "device_kernels_ms": passes, "digest": h.hexdigest()[:32]}
+        print(f"phase commit {name} {list(args[0].shape)}, {out[name]['token_bytes']} token bytes: kernel {ms:.4f} "
+              f"ms, digest {out[name]['digest']}, device ms by kernel (profiler) {json.dumps(passes)}", flush=True)
+        del args, tok, tl
+    return out
 
 
 def phase_timing_huffman(data: bytes, tok_lens: list[int], dev) -> dict:
@@ -1635,6 +1751,10 @@ def main() -> int:
         hdecode = time_hdecode(bench.make_corpus(MAIN_BYTES), dev)
         print(json.dumps({"card": smi, "huffman_decode": hdecode}))
         return 0
+    if sys.argv[1:] == ["--commit"]:  # kernel E alone on its seven inputs, no plain version
+        commit = time_commit(bench.make_corpus(MAIN_BYTES), dev)
+        print(json.dumps({"card": smi, "window": WINDOW, "lzss_commit": commit}))
+        return 0
     if sys.argv[1:] == ["--paths"]:  # phase 3 alone: the main paths and the streams, no traces
         data = bench.make_corpus(MAIN_BYTES)
         for algorithms, wrappers in ((("arithmetic",), arith), (LZ, {**arith, **lz}), (LZ_HUFF, {**lz, **huff}),
@@ -1676,6 +1796,7 @@ def main() -> int:
               + json.dumps(trace), flush=True)
     phase_main(data, ("huffman",), huff, reset, card, dev)
     phase_main(data, ("lzss",), lz, reset, card, dev)
+    phase_wide_window(data, dev)
     launches_stream = phase_stream(data[:STREAM_BYTES], every, reset, card, dev)
 
     # phase 4: kernels at the main paths' shapes, beside their plain versions

@@ -9,8 +9,13 @@ way L positions are consumed. L <= 1 is one literal. D and L take up to 5
 decimal digits (windows above 9999), so a token is at most 13 bytes; the
 JAX kernel stops at 4 digits.
 
-Kernel E (csrc/lzss_commit.cu) is the sequential greedy walk, one warp per
-block. The plain version :func:`_commit_tokens_torch` is the pointer-doubling
+Kernel E (csrc/lzss_commit.cu) walks each block in parallel segments of SEG
+positions, SPAN_SEGS segments a CTA (a span): each segment walks greedily
+from its first position, then the segments repair their entries from the
+exits before them (walks from different positions soon land on a common
+position); a second device kernel chains the spans of each block in order
+and scans the byte counts into offsets, a third writes the bytes. The
+plain version :func:`_commit_tokens_torch` is the pointer-doubling
 formulation of raisin_tpu/ops/lzss_jax.py:commit_blocks: the committed
 positions are the orbit of 0 under ``f(i) = i + max(L[i], 1)``, found here
 by doubling a reachable set (``M |= f(M)``, then ``f = f(f)``) instead of
@@ -26,6 +31,8 @@ from raisin_tpu_torch.ops import _build
 from raisin_tpu_torch.ops.arithmetic_rows import _check_cuda
 
 OPENING, SEP, CLOSING = 0x3C, 0x2C, 0x3E  # the token syntax "<D,L>"; the walk reads it
+SEG = 64  # positions a segment (csrc/lzss_commit.cu)
+SPAN_SEGS = 256  # segments a CTA
 
 
 def _ndigits(v: torch.Tensor) -> torch.Tensor:
@@ -91,6 +98,12 @@ def _commit_tokens_torch(x, L, D, lengths):
     return out.to(torch.uint8), total.to(torch.int32)
 
 
+def workspace_bytes(B: int, S: int) -> int:
+    """Kernel E's workspace for B blocks of S positions: 16 bytes for each of its segments."""
+    spans = max(1, -(-S // (SEG * SPAN_SEGS)))
+    return 16 * B * spans * SPAN_SEGS
+
+
 def commit_tokens(x: torch.Tensor, L: torch.Tensor, D: torch.Tensor, lengths: torch.Tensor):
     """Greedy commit and ASCII token emission (kernel E, or its plain version).
 
@@ -114,12 +127,13 @@ def commit_tokens(x: torch.Tensor, L: torch.Tensor, D: torch.Tensor, lengths: to
     tok_len = torch.zeros(B, dtype=torch.int32, device=dev)
     if B == 0 or S == 0:
         return tok, tok_len
+    work = torch.empty(workspace_bytes(B, S) // 8, dtype=torch.int64, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         commit_tokens.launches += 1
         rc = lib.rsn_lzss_commit(
             x.data_ptr(), L.data_ptr(), D.data_ptr(), lengths.data_ptr(),
-            tok.data_ptr(), tok_len.data_ptr(), B, S, _build.stream_handle(dev),
+            tok.data_ptr(), tok_len.data_ptr(), work.data_ptr(), B, S, _build.stream_handle(dev),
         )
     _build.check("rsn_lzss_commit", rc)
     return tok, tok_len

@@ -5,12 +5,14 @@ The port covers five pipelines, encode and decode: the default
 ``("huffman",)`` and ``("lzss", "huffman")``. Each block is an exact
 single-stream `.rsn` payload of its pipeline, and the ``lzss,arithmetic``
 and ``lzss,huffman`` containers carry the aux table of per-block
-token-stream lengths, so every container this module writes at an LZSS
-window up to 8191 is byte-identical to the JAX package's, and each package
-reads the other's. (Above 8191 the JAX package encodes ``lzss`` and
-``lzss,arithmetic`` on the host and writes no aux table for the latter;
+token-stream lengths, except ``lzss,arithmetic`` above window 8191, which
+carries none, as in the JAX package (it encodes such blocks on the host;
 the port stays on the card at any window up to 65535, with the same
-payloads, and writes one.)
+payloads). So every container this module writes is byte-identical to the
+JAX package's, and each package reads the other's. An ``lzss,arithmetic``
+container without an aux table decodes block by block on the host, with
+the port's copies of the oracles (``formats/``): without the token
+lengths kernel C has no step count.
 
 The JAX package's TPU limits do not carry over: there is no 128-lane block
 padding, no VMEM batch cap, no 64 KiB payload or escaped-block gate and no
@@ -49,6 +51,8 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
+from raisin_tpu_torch.formats import arithmetic as arithmetic_host
+from raisin_tpu_torch.formats import lzss as lzss_host
 from raisin_tpu_torch.ops import arithmetic_rows, escape, huffman_blocks, lzss_decode, lzss_match, pipeline
 from raisin_tpu_torch.ops.device import d2h as _d2h
 from raisin_tpu_torch.ops.device import h2d as _h2d
@@ -63,6 +67,7 @@ ARITH, LZ_ARITH, LZ, HUFF, LZ_HUFF = (
 )
 PIPELINES = (LZ_ARITH, ARITH, LZ, HUFF, LZ_HUFF)
 WITH_AUX = (LZ_ARITH, LZ_HUFF)  # the containers that carry the token lengths
+LZ_ARITH_AUX_MAX_WINDOW = 8191  # above it the JAX package writes lzss,arithmetic without them
 
 # Device bytes per block byte of one batch, (encode, decode), by pipeline.
 # arithmetic: the uint8 input and its padded copies, the int32 cast and
@@ -361,10 +366,15 @@ def compress_container(
     with record_function("rsnb.compress"):
         sizes, body, toks = _encode_rows(data, block_size, dev, algorithms, window)
         with record_function("rsnb.enc.d2h"):
-            aux = [toks] if algorithms in WITH_AUX else []
+            aux = [toks] if _writes_aux(algorithms, window) else []
             head = _header(sizes, aux, algorithms, block_size, window, len(data))
             # framed on the device: the container comes back in one copy
             return _d2h(torch.cat([_h2d(head, dev), body]))
+
+
+def _writes_aux(algorithms: tuple[str, ...], window: int) -> bool:
+    """Whether the container carries the aux table of token lengths, as the JAX package decides."""
+    return algorithms in WITH_AUX and not (algorithms == LZ_ARITH and window > LZ_ARITH_AUX_MAX_WINDOW)
 
 
 def _header(sizes, aux, algorithms, block_size: int, window: int, orig_size: int) -> bytes:
@@ -437,6 +447,13 @@ def decompress_container(data: bytes, device: torch.device | str | None = None) 
         return _decompress_container(data, resolve_device(device))
 
 
+def _decode_lz_arith_on_host(data: bytes, pos: int, sizes) -> bytes:
+    """An lzss,arithmetic container without token lengths, block by block on the host, as the
+    JAX package decodes it (``decompress_bytes`` per payload): kernel C needs the step count."""
+    with record_function("rsnb.dec.host"):
+        return b"".join(lzss_host.decompress(arithmetic_host.decompress(p)) for p in _split(data, sizes, pos))
+
+
 def _decompress_container(data: bytes, device: torch.device) -> bytes:
     algorithms, block_size, orig_size, sizes, aux, window, pos = _parse_header(data)
     if orig_size == 0:
@@ -446,17 +463,14 @@ def _decompress_container(data: bytes, device: torch.device) -> bytes:
     tok_lens = None
     if algorithms in WITH_AUX and aux:
         tok_lens = np.array(aux[0], dtype=np.int64)
-    elif algorithms == LZ_ARITH:
-        # neither package writes one at windows up to 8191
-        raise NotImplementedError(
-            "an ('lzss', 'arithmetic') container without its aux table of token lengths "
-            "comes with ROADMAP Queue 1 item 17 (aux-less lzss,arithmetic containers)"
-        )
     sizes = np.array(sizes, dtype=np.int64)
-    out_lens = np.minimum(block_size, orig_size - block_size * np.arange(len(sizes), dtype=np.int64))
     if pos + int(sizes.sum()) > len(data):
         raise ValueError("container: payloads run past the end of the data")
-    out = _decode_rows(data, pos, algorithms, sizes, out_lens, device, tok_lens)
+    if algorithms == LZ_ARITH and tok_lens is None:
+        out = _decode_lz_arith_on_host(data, pos, sizes)
+    else:
+        out_lens = np.minimum(block_size, orig_size - block_size * np.arange(len(sizes), dtype=np.int64))
+        out = _decode_rows(data, pos, algorithms, sizes, out_lens, device, tok_lens)
     if len(out) != orig_size:
         raise ValueError(f"container: decoded {len(out)} bytes, expected {orig_size}")
     return out

@@ -1,10 +1,11 @@
-// Host emulation of the CUDA features that kernels A, C, H and I
-// (csrc/arith_encode.cu, csrc/arith_decode.cu, csrc/huffman_decode.cu,
-// csrc/arith_events.cu) use, so
+// Host emulation of the CUDA features that kernels A, C, E, H and I
+// (csrc/arith_encode.cu, csrc/arith_decode.cu, csrc/lzss_commit.cu,
+// csrc/huffman_decode.cu, csrc/arith_events.cu) use, so
 // that their sources compile with g++ and run on the CPU in the tests: each
 // thread of a CTA runs as a thread of its own, all of a CTA's threads at
 // once; the warp intrinsics (shuffles, reductions, __syncwarp) exchange
-// values through a barrier of the warp's 32 lanes, and __syncthreads is a
+// values through a barrier of the warp's 32 lanes (__ballot_sync and __any_sync
+// vote through one), and __syncthreads is a
 // barrier of the CTA's threads (__syncthreads_or also ORs a predicate over
 // them). Only warp-uniform control flow around a warp
 // intrinsic, and CTA-uniform control flow around __syncthreads, is
@@ -84,6 +85,17 @@ inline unsigned __shfl_sync(unsigned, unsigned v, int src) {
 inline unsigned __shfl_up_sync(unsigned, unsigned v, unsigned delta) {
     const unsigned lane = lane_id();
     return exchange(v, [&](unsigned* s) { return lane >= delta ? s[lane - delta] : s[lane]; });
+}
+inline unsigned __ballot_sync(unsigned, int pred) {
+    const unsigned lane = lane_id();
+    return exchange(pred ? 1u << lane : 0u, [](unsigned* s) {
+        unsigned r = 0;
+        for (int k = 0; k < 32; ++k) r |= s[k];
+        return r;
+    });
+}
+inline int __any_sync(unsigned, int pred) {
+    return (int)exchange(pred ? 1u : 0u, [](unsigned* s) { return (unsigned)std::any_of(s, s + 32, [](unsigned v) { return v != 0; }); });
 }
 inline unsigned __reduce_max_sync(unsigned, unsigned v) {
     return exchange(v, [](unsigned* s) { return *std::max_element(s, s + 32); });

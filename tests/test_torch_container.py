@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import raisin_tpu.native
 from raisin_tpu.formats import arithmetic_ref, lzss_ref
 from raisin_tpu.parallel import blocks as jax_blocks
 from raisin_tpu_torch.parallel import blocks as port_blocks
@@ -39,6 +40,16 @@ INPUTS = {
     "one_block": lambda bs: random_text(bs, seed=93),
 }
 CASES = [(name, bs) for name in INPUTS for bs in BLOCK_SIZES]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _own_native_cache(tmp_path_factory):
+    """Builds of the JAX package's native library (its host encode above window 8191) go to
+    this module's directory."""
+    patch = pytest.MonkeyPatch()
+    patch.setattr(raisin_tpu.native, "_CACHE", str(tmp_path_factory.mktemp("native")))
+    yield
+    patch.undo()
 
 
 @functools.cache
@@ -312,20 +323,73 @@ def test_lzss_five_digit_window_round_trips_through_the_oracle():
     # zeros reach a match at distance 12000 at window 12000: a five-digit token
     data = b"\x00" * 21000 + random_text(500, seed=100)
     c = port_blocks.compress_container(data, LZ, block_size=1 << 16, window=12000, device="cpu")
+    assert c == jax_blocks.compress_container(data, LZ, block_size=1 << 16, window=12000)
     _, _, _, payloads, aux, _ = port_blocks.parse_container(c)
     tokens = lzss_ref.compress(data, 12000)
-    assert b"<12000," in tokens and aux == [[len(tokens)]]
+    assert b"<12000," in tokens and aux == []
     assert payloads == [arithmetic_ref.compress(tokens)]
     assert port_blocks.decompress_container(c, device="cpu") == data
     assert jax_blocks.decompress_container(c) == data
 
 
 def test_lzss_container_without_aux_names_its_roadmap_item():
+    """An lzss,arithmetic container without an aux table (ROADMAP Queue 1 item 17) decodes, in
+    both packages, block by block on the host."""
     data = b"no aux table " * 20
     payload = arithmetic_ref.compress(lzss_ref.compress(data, 4096))
     c = port_blocks.assemble_container([payload], [], LZ, 4096, 4096, len(data))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 17"):
+    assert port_blocks.decompress_container(c, device="cpu") == data == jax_blocks.decompress_container(c)
+
+
+# above window 8191 the JAX package encodes lzss,arithmetic on the host and writes no aux table
+WIDE_WINDOWS = [8191, 8192, 16384, 65535]
+
+
+@functools.cache
+def _wide_window_containers(window: int):
+    """(data, JAX container, port container): three blocks of 5000 B and a ragged one."""
+    data = (random_text(6000, seed=101) * 3)[:15700]
+    jax_c = jax_blocks.compress_container(data, LZ, block_size=5000, window=window)
+    port_c = port_blocks.compress_container(data, LZ, block_size=5000, window=window, device="cpu")
+    return data, jax_c, port_c
+
+
+@pytest.mark.parametrize("window", WIDE_WINDOWS)
+def test_lzss_container_at_wide_windows_equals_jax(window):
+    data, jax_c, port_c = _wide_window_containers(window)
+    assert port_c == jax_c
+    _, _, orig, payloads, aux, got_window = port_blocks.parse_container(port_c)
+    blocks = [data[i : i + 5000] for i in range(0, len(data), 5000)]
+    tokens = [lzss_ref.compress(b, window) for b in blocks]
+    assert (orig, got_window, len(payloads)) == (len(data), window, 4)
+    assert aux == ([[len(t) for t in tokens]] if window <= 8191 else [])
+
+
+@pytest.mark.parametrize("window", WIDE_WINDOWS)
+def test_lzss_containers_at_wide_windows_decode_in_both_packages(window):
+    data, jax_c, port_c = _wide_window_containers(window)
+    assert port_blocks.decompress_container(jax_c, device="cpu") == data
+    assert jax_blocks.decompress_container(port_c) == data
+
+
+def test_lzss_container_without_aux_raises_on_a_corrupt_payload_like_jax():
+    data = random_text(3000, seed=102)
+    payload = arithmetic_ref.compress(lzss_ref.compress(data, 16384))
+    c = port_blocks.assemble_container([payload[: len(payload) // 2]], [], LZ, 4096, 16384, len(data))
+    with pytest.raises(ValueError):
+        jax_blocks.decompress_container(c)
+    with pytest.raises(ValueError, match="^arithmetic: stream ended without EOF symbol$"):
         port_blocks.decompress_container(c, device="cpu")
+
+
+def test_lzss_container_without_aux_checks_the_total_like_jax():
+    # the header says 5 bytes more than the block decodes to
+    data = random_text(900, seed=103)
+    payload = arithmetic_ref.compress(lzss_ref.compress(data, 16384))
+    c = port_blocks.assemble_container([payload], [], LZ, 4096, 16384, len(data) + 5)
+    for decode in (jax_blocks.decompress_container, functools.partial(port_blocks.decompress_container, device="cpu")):
+        with pytest.raises(ValueError, match=f"decoded {len(data)} bytes, expected {len(data) + 5}"):
+            decode(c)
 
 
 def test_lzss_missing_eof_raises_like_jax():
