@@ -8,6 +8,7 @@
     python3 chip_smoke.py --events   # kernel I alone: build, then time_events without the plain version
     python3 chip_smoke.py --hdecode  # kernel H alone: build, then time_hdecode without the plain version
     python3 chip_smoke.py --commit   # kernel E alone: build, then time_commit without the plain version
+    python3 chip_smoke.py --walk     # kernel F alone: build, then time_walk without the plain version
     python3 chip_smoke.py --paths    # phase 3 alone: the main paths and the streams, without traces
 
 Phases, each printing one line; any failure exits nonzero before the
@@ -92,6 +93,9 @@ result line:
    its three kernels at the first two shapes. Kernel E is held against its
    plain version at the container's shape and at the lzss,arithmetic
    stream's (B = 1), with the device ms of its three kernels at both.
+   Kernel F is held against its plain version at the lzss,arithmetic
+   container's shape, on MAIN_BYTES of zero bytes through kernels D and E,
+   and on a chain of tokens "<6,6>" that each copy the one before.
 
 ``--match`` runs phase 1 and then only kernel D on its four inputs, with a
 digest of its output per input and no plain version; ``--encode`` and
@@ -106,7 +110,11 @@ each checked to give back its blocks; ``--commit`` does the same for
 kernel E on ``COMMIT_INPUTS`` (the corpus and zeros at the container's
 shape and at the 1 MiB stream's, B = 1, MAIN_BYTES of random bytes in
 64 KiB blocks, each with L and D from kernel D, and the field L = 2 after
-a literal at both shapes); ``--paths`` runs phase 1 and then
+a literal at both shapes); ``--walk`` does the same for kernel F on
+``WALK_INPUTS`` (the lzss,arithmetic container's token rows, MAIN_BYTES of
+zero bytes and of random bytes through kernels D and E, and two chains of
+tokens at the container's shape), each checked to give back its input, with
+the kernel's rounds where it reports them; ``--paths`` runs phase 1 and then
 phase 3 without its traces and without the WIDE_WINDOW container (an
 earlier tree writes an aux table there). Copied into another checkout of the
 repository (an earlier commit, say), the script measures that tree's code
@@ -1415,15 +1423,19 @@ def phase_timing_lzss(data: bytes, tok_lens: list[int], dev) -> dict:
     results["lzss_commit"]["device_kernels_ms"] = passes
     print(f"phase timing lzss_commit, device ms by kernel (profiler): {json.dumps(passes)}", flush=True)
 
-    steps = int(tl_k.max()) + 1
-    tok = torch.nn.functional.pad(tok_k[:, : steps - 1], (0, 1)).contiguous()
-    cap_out = 2 * BLOCK_SIZE
-    ms_f = cuda_ms(lambda: lzss_decode.walk_tokens(tok, tl_k, cap_out), 3)
-    rows_k, ol_k, fl_k = lzss_decode.walk_tokens(tok, tl_k, cap_out)
-    (rows_p, ol_p, fl_p), plain_f = plain_ms(lambda: lzss_decode._walk_tokens_torch(tok, tl_k, cap_out))
-    results["lzss_decode"] = _result(max_abs_err((rows_k, rows_p), (ol_k, ol_p), (fl_k, fl_p)), ms_f, plain_f,
-                                     toks + esc, 2 * toks)
+    tok = token_rows(tok_k, tl_k)
+    results["lzss_decode"] = walk_result((tok, tl_k, 2 * BLOCK_SIZE))
+    del results["lzss_decode"]["shape"]
+    rows_k, ol_k, _ = lzss_decode.walk_tokens(tok, tl_k, 2 * BLOCK_SIZE)
     check(torch.equal(rows_k[:, : xe.shape[1]], xe) and torch.equal(ol_k, en), "kernel F did not restore the main path's blocks")
+    del rows_k, ol_k, tok, tok_k, xe
+    for name in ("zeros", "chained"):
+        args, _ = walk_input(name, data, dev)
+        r = results["lzss_decode"][name] = walk_result(args)
+        check(r["max_abs_err"] == 0, f"kernel F differs from its plain version on {name} (err {r['max_abs_err']})")
+        print(f"phase timing lzss_decode on {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.1f} "
+              f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err {r['max_abs_err']}", flush=True)
+        del args
     return results
 
 
@@ -1494,6 +1506,121 @@ def time_commit(data: bytes, dev) -> dict:
         print(f"phase commit {name} {list(args[0].shape)}, {out[name]['token_bytes']} token bytes: kernel {ms:.4f} "
               f"ms, digest {out[name]['digest']}, device ms by kernel (profiler) {json.dumps(passes)}", flush=True)
         del args, tok, tl
+    return out
+
+
+def token_rows(tok, tok_len):
+    """Token rows as the container hands them to kernel F: max(tok_len) + 1 bytes wide."""
+    import torch
+
+    width = int(tok_len.max()) + 1
+    return torch.nn.functional.pad(tok[:, : width - 1], (0, 1)).contiguous()
+
+
+def chained(out_bytes: int, d: int, L: int) -> bytes:
+    """``d`` literals, then tokens "<d,L>" up to ``out_bytes`` of output: with L = d each copies
+    the one before it; with L < d its source also takes the end of the token before that."""
+    return b"abcdefghijklmnopqrstuvwxyz"[:d] + f"<{d},{L}>".encode() * max(0, (out_bytes - d) // L)
+
+
+# kernel F's timing inputs: the lzss,arithmetic container's token rows (the corpus through
+# kernels D and E at window WINDOW, MAIN_BYTES in BLOCK_SIZE blocks), MAIN_BYTES of zero bytes
+# and of seeded random bytes the same way, and two chains of tokens in as many blocks, each of
+# up to BLOCK_SIZE output bytes: "abcdef" then "<6,6>" (each token copies the one before it)
+# and "abcde" then "<5,4>" (each source spans two tokens' outputs)
+WALK_INPUTS = ("lzss,arithmetic", "zeros", "random", "chained", "chain <5,4>")
+
+
+def walk_input(name: str, data: bytes, dev):
+    """One of WALK_INPUTS: (kernel F's arguments (tok, tok_len, cap_out) on ``dev``, the rows'
+    bytes it must give back: the escaped blocks, or one chain's output)."""
+    import torch
+
+    from raisin_tpu_torch.ops import escape, lzss_commit, lzss_match
+
+    blocks = MAIN_BYTES // BLOCK_SIZE
+    if name.startswith("chain"):
+        d, L = (6, 6) if name == "chained" else (5, 4)
+        stream = chained(BLOCK_SIZE, d, L)
+        tok = torch.frombuffer(bytearray(stream), dtype=torch.uint8).to(dev)
+        n = torch.full((blocks,), len(stream), dtype=torch.int32, device=dev)
+        out = (stream[:d] * (BLOCK_SIZE // d + 1))[: d + (BLOCK_SIZE - d) // L * L]  # each copies d bytes back
+        return (tok.expand(blocks, -1).contiguous(), n, 2 * BLOCK_SIZE), out
+    m, n = padded(match_blocks({"lzss,arithmetic": "corpus"}.get(name, name), data))
+    xe, en = escape.escape_blocks(torch.from_numpy(m).to(dev), torch.from_numpy(n).to(dev))
+    del m
+    tok, tl = lzss_commit.commit_tokens(xe, *lzss_match.find_matches(xe, en, WINDOW), en)
+    return (token_rows(tok, tl), tl, 2 * BLOCK_SIZE), (xe, en)
+
+
+def walk_result(args) -> dict:
+    """Kernel F on ``args`` beside its plain version on the card: _result's keys and the shape."""
+    import torch
+
+    from raisin_tpu_torch.ops import lzss_decode
+
+    ms = cuda_ms(lambda: lzss_decode.walk_tokens(*args), 3)
+    got = lzss_decode.walk_tokens(*args)
+    want, plain = plain_ms(lambda: lzss_decode._walk_tokens_torch(*args))
+    toks, esc = (float(v.to(torch.int64).sum()) for v in (args[1], got[1]))
+    # token bytes in, escaped bytes out; a byte-serial walk reads each token byte and writes each output byte
+    return {"shape": list(args[0].shape), **_result(max_abs_err(*zip(got, want)), ms, plain, toks + esc, 2 * toks)}
+
+
+def walk_stats(args) -> dict | None:
+    """Kernel F's rounds and one-warp steps on ``args``, summed over the blocks, and their most in
+    a block; None where the wrapper takes no stats (trees before the rounds)."""
+    import inspect
+
+    import torch
+
+    from raisin_tpu_torch.ops import lzss_decode
+
+    if "stats" not in inspect.signature(lzss_decode.walk_tokens).parameters:
+        return None
+    st = torch.zeros((args[0].shape[0], 2), dtype=torch.int32, device=args[0].device)
+    lzss_decode.walk_tokens(*args, stats=st)
+    rounds, steps = st.to(torch.int64).cpu().T
+    return {"rounds": int(rounds.sum()), "max_rounds": int(rounds.max()), "steps": int(steps.sum()),
+            "max_steps": int(steps.max())}
+
+
+def time_walk(data: bytes, dev) -> dict:
+    """Kernel F on each of WALK_INPUTS, without its plain version.
+
+    Per input: the shape, the token bytes, ms per call (CUDA events over 3,
+    after a warm-up), the device ms of each kernel one call launches (the
+    profiler's names), the kernel's rounds and one-warp steps where it
+    reports them, and a digest of (rows, out_len, err) (equal digests from
+    two trees mean equal outputs); each input must come back.
+    """
+    import torch
+
+    from raisin_tpu_torch.ops import lzss_decode
+
+    out = {}
+    for name in WALK_INPUTS:
+        args, want = walk_input(name, data, dev)
+        lzss_decode.walk_tokens(*args)  # warm-up
+        ms = cuda_ms(lambda: lzss_decode.walk_tokens(*args), 3)
+        passes = device_kernel_ms(lambda: lzss_decode.walk_tokens(*args))
+        rows, ol, fl = lzss_decode.walk_tokens(*args)
+        if isinstance(want, bytes):
+            row = torch.frombuffer(bytearray(want), dtype=torch.uint8).to(dev)
+            ok = bool((ol == len(want)).all()) and torch.equal(rows[:, : len(want)], row.expand(len(ol), -1))
+        else:
+            xe, en = want
+            ok = torch.equal(ol, en) and torch.equal(rows[:, : xe.shape[1]], xe)
+        check(ok and not fl.any() and not rows[:, int(ol.max()) :].any(), f"kernel F did not give back {name}")
+        h = hashlib.sha256(rows.cpu().numpy())
+        h.update(ol.cpu().numpy())
+        h.update(fl.cpu().numpy())
+        out[name] = {"shape": list(args[0].shape), "token_bytes": int(args[1].sum()), "ms": ms,
+                     "device_kernels_ms": passes, "stats": walk_stats(args), "digest": h.hexdigest()[:32]}
+        print(f"phase walk {name} {out[name]['shape']}, {out[name]['token_bytes']} token bytes: kernel {ms:.4f} ms, "
+              f"rounds {json.dumps(out[name]['stats'])}, digest {out[name]['digest']}, device ms by kernel "
+              f"(profiler) {json.dumps(passes)}", flush=True)
+        del args, want, rows, ol, fl
     return out
 
 
@@ -1754,6 +1881,10 @@ def main() -> int:
     if sys.argv[1:] == ["--commit"]:  # kernel E alone on its seven inputs, no plain version
         commit = time_commit(bench.make_corpus(MAIN_BYTES), dev)
         print(json.dumps({"card": smi, "window": WINDOW, "lzss_commit": commit}))
+        return 0
+    if sys.argv[1:] == ["--walk"]:  # kernel F alone on its five inputs, no plain version
+        walk = time_walk(bench.make_corpus(MAIN_BYTES), dev)
+        print(json.dumps({"card": smi, "window": WINDOW, "lzss_decode": walk}))
         return 0
     if sys.argv[1:] == ["--paths"]:  # phase 3 alone: the main paths and the streams, no traces
         data = bench.make_corpus(MAIN_BYTES)

@@ -12,8 +12,9 @@ A reference with ``D > len`` or ``L > D`` lies outside the decoded output,
 which raises ValueError as the oracle does; since ``L <= D`` on every
 valid stream, a copy never overlaps its source.
 
-Kernel F (csrc/lzss_decode.cu) walks each stream with one warp, parsing
-``<D,L>`` as it goes; no side table. The plain version
+Kernel F (csrc/lzss_decode.cu) takes each stream with a CTA: scans parse
+it a tile at a time, the output is staged in shared memory, and the
+copies resolve in rounds of ready tokens; no side table. The plain version
 :func:`_walk_tokens_torch` works on all positions at once: the state before
 each byte comes from a prefix composition of the 3-state transition
 functions, the numbers from a prefix composition of saturating affine maps
@@ -136,13 +137,16 @@ def _walk_tokens_torch(tok: torch.Tensor, tok_len: torch.Tensor, cap_out: int):
     return rows.contiguous(), out_len, err
 
 
-def walk_tokens(tok: torch.Tensor, tok_len: torch.Tensor, cap_out: int):
+def walk_tokens(tok: torch.Tensor, tok_len: torch.Tensor, cap_out: int, stats: torch.Tensor | None = None):
     """Kernel F, or its plain version: (rows (B, cap_out) uint8, out_len, err), int32.
 
     Args:
       tok: (B, S) uint8 token streams (what lies past ``tok_len`` is ignored).
       tok_len: (B,) int32, each <= S.
       cap_out: output bytes per row, < 2**30.
+      stats: optional (B, 2) int32 on the card, for the kernel only: each
+        block's rounds over its tiles' tokens and the steps of the one-warp
+        walk that takes over a tile's slow tail.
     """
     if not 0 <= cap_out < SATURATE:
         raise ValueError(f"cap_out must lie in [0, {SATURATE})")
@@ -150,21 +154,24 @@ def walk_tokens(tok: torch.Tensor, tok_len: torch.Tensor, cap_out: int):
         return _walk_tokens_torch(tok, tok_len, cap_out)
     B, S = _check_cuda("walk_tokens", tok, torch.uint8, 2)
     _check_cuda("walk_tokens", tok_len, torch.int32, 1, (B,), tok.device)
+    if stats is not None:
+        _check_cuda("walk_tokens", stats, torch.int32, 2, (B, 2), tok.device)
     dev = tok.device
-    rows = torch.zeros((B, cap_out), dtype=torch.uint8, device=dev)
-    out_len = torch.zeros(B, dtype=torch.int32, device=dev)
-    err = torch.zeros(B, dtype=torch.int32, device=dev)
     if B == 0 or S == 0:
-        return rows, out_len, err
+        empty = torch.zeros(B, dtype=torch.int32, device=dev)
+        return torch.zeros((B, cap_out), dtype=torch.uint8, device=dev), empty, empty.clone()
+    # the kernel writes every byte of the rows, zeros past out_len and in a faulty row
+    rows = torch.empty((B, cap_out), dtype=torch.uint8, device=dev)
+    out_len = torch.empty(B, dtype=torch.int32, device=dev)
+    err = torch.empty(B, dtype=torch.int32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         walk_tokens.launches += 1
         rc = lib.rsn_lzss_decode(
             tok.data_ptr(), tok_len.data_ptr(), rows.data_ptr(), out_len.data_ptr(),
-            err.data_ptr(), B, S, cap_out, _build.stream_handle(dev),
+            err.data_ptr(), 0 if stats is None else stats.data_ptr(), B, S, cap_out, _build.stream_handle(dev),
         )
     _build.check("rsn_lzss_decode", rc)
-    rows[err != 0] = 0
     return rows, out_len, err
 
 

@@ -1,6 +1,6 @@
-// Host emulation of the CUDA features that kernels A, C, E, H and I
+// Host emulation of the CUDA features that kernels A, C, E, F, H and I
 // (csrc/arith_encode.cu, csrc/arith_decode.cu, csrc/lzss_commit.cu,
-// csrc/huffman_decode.cu, csrc/arith_events.cu) use, so
+// csrc/lzss_decode.cu, csrc/huffman_decode.cu, csrc/arith_events.cu) use, so
 // that their sources compile with g++ and run on the CPU in the tests: each
 // thread of a CTA runs as a thread of its own, all of a CTA's threads at
 // once; the warp intrinsics (shuffles, reductions, __syncwarp) exchange
@@ -10,7 +10,11 @@
 // them). Only warp-uniform control flow around a warp
 // intrinsic, and CTA-uniform control flow around __syncthreads, is
 // supported, which is all the kernels have. Shared memory is a static
-// variable: the grid's CTAs run one after another.
+// variable: the grid's CTAs run one after another. Dynamic shared memory
+// (`extern __shared__ T name[];`) takes EMU_DYNAMIC_SHARED_BYTES, the most a
+// CTA of an H100 may ask for: the tests rewrite the declaration to
+// `__shared__ T name[EMU_DYNAMIC_SHARED_BYTES];`, as they rewrite launches
+// to emu_launch, and cudaFuncSetAttribute accepts any size up to it.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -37,7 +41,14 @@ struct uint4 { unsigned x, y, z, w; };
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
 typedef void* cudaStream_t;
 typedef int cudaError_t;
+constexpr cudaError_t cudaSuccess = 0;
 inline int cudaGetLastError() { return 0; }
+constexpr int EMU_DYNAMIC_SHARED_BYTES = 232448;
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+template <class K>
+inline cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int bytes) {
+    return bytes <= EMU_DYNAMIC_SHARED_BYTES ? cudaSuccess : 1;
+}
 inline const char* cudaGetErrorString(cudaError_t) { return "no error (host emulation)"; }
 using std::max;
 using std::min;
@@ -100,11 +111,19 @@ inline int __any_sync(unsigned, int pred) {
 inline unsigned __reduce_max_sync(unsigned, unsigned v) {
     return exchange(v, [](unsigned* s) { return *std::max_element(s, s + 32); });
 }
+inline unsigned __reduce_add_sync(unsigned, unsigned v) {
+    return exchange(v, [](unsigned* s) {
+        unsigned r = 0;
+        for (int k = 0; k < 32; ++k) r += s[k];
+        return r;
+    });
+}
 inline unsigned __reduce_min_sync(unsigned, unsigned v) {
     return exchange(v, [](unsigned* s) { return *std::min_element(s, s + 32); });
 }
 inline int __clz(int x) { return x == 0 ? 32 : __builtin_clz((unsigned)x); }
 inline int __ffs(int x) { return __builtin_ffs(x); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline unsigned __umulhi(unsigned a, unsigned b) { return (unsigned)(((unsigned long long)a * b) >> 32); }
 inline unsigned __funnelshift_lc(unsigned lo, unsigned hi, unsigned sh) {
     sh = sh > 32 ? 32 : sh;
