@@ -9,6 +9,8 @@
     python3 chip_smoke.py --hdecode  # kernel H alone: build, then time_hdecode without the plain version
     python3 chip_smoke.py --commit   # kernel E alone: build, then time_commit without the plain version
     python3 chip_smoke.py --walk     # kernel F alone: build, then time_walk without the plain version
+    python3 chip_smoke.py --hencode  # kernel G alone: build, then time_hencode without the plain version
+    python3 chip_smoke.py --prepad   # kernel B alone: build, then time_prepad without the plain version
     python3 chip_smoke.py --paths    # phase 3 alone: the main paths and the streams, without traces
 
 Phases, each printing one line; any failure exits nonzero before the
@@ -20,7 +22,8 @@ result line:
 2. each kernel against its plain PyTorch version on the card, exactly, on
    128 edge-case blocks of <= 2 KiB: A encode, B prepad, C decode (also,
    against the plain version on the host, at row pitches of every residue
-   mod 4, on garbage rows and on a block that freezes the model), I event
+   mod 4, on garbage rows and on a block that freezes the model; B also on
+   garbage past every stream and on raw rows off 16 bytes), I event
    records, and, at
    windows 16 and 4096, D match search, E commit and F token walk; D, E
    and F also on 24 KiB run-heavy blocks at window 16384 (five-digit
@@ -96,6 +99,12 @@ result line:
    Kernel F is held against its plain version at the lzss,arithmetic
    container's shape, on MAIN_BYTES of zero bytes through kernels D and E,
    and on a chain of tokens "<6,6>" that each copy the one before.
+   Kernel G is held against its plain version on each of HENCODE_INPUTS
+   (both Huffman containers' rows, the huffman stream and the whole corpus
+   as one block, uniform ASCII and skewed bytes in BLOCK_SIZE blocks), with
+   the host's bit totals as the container hands them over, and kernel B on
+   kernel A's rows of each of PREPAD_INPUTS (DECODE_INPUTS); G's stream row
+   joins its entry in the kernel table.
 
 ``--match`` runs phase 1 and then only kernel D on its four inputs, with a
 digest of its output per input and no plain version; ``--encode`` and
@@ -114,7 +123,11 @@ a literal at both shapes); ``--walk`` does the same for kernel F on
 ``WALK_INPUTS`` (the lzss,arithmetic container's token rows, MAIN_BYTES of
 zero bytes and of random bytes through kernels D and E, and two chains of
 tokens at the container's shape), each checked to give back its input, with
-the kernel's rounds where it reports them; ``--paths`` runs phase 1 and then
+the kernel's rounds where it reports them; ``--hencode`` does the same for
+kernel G on ``HENCODE_INPUTS`` (also each call followed by the host's read
+of byte_lens, as the container reads G's result) and ``--prepad`` for
+kernel B on ``PREPAD_INPUTS``, each with its device kernels' ms from the
+profiler; ``--paths`` runs phase 1 and then
 phase 3 without its traces and without the WIDE_WINDOW container (an
 earlier tree writes an aux table there). Copied into another checkout of the
 repository (an earlier commit, say), the script measures that tree's code
@@ -483,6 +496,25 @@ def phase_kernels_vs_plain(ar, dev) -> None:
     err = max_abs_err((rows_k, rows_p), (bl_k, bl_p))
     check(err == 0, f"kernel B differs from its plain version (max abs err {err})")
     print(f"phase kernel B (prepad) vs plain: equal on {len(blocks)} blocks, max_abs_err 0", flush=True)
+    # garbage in every bit past each stream, which kernel B must clear or not read, and the same
+    # rows one row on (off 16 bytes where capw % 4 != 0), whose raw rows are aligned unlike the output's
+    T = bits_p.to(torch.int64)[:, None]
+    keep = (T - 32 * torch.arange(capw, device=dev)[None, :]).clamp(0, 32)
+    past = ((0xFFFFFFFF >> keep) & 0xFFFFFFFF) * (keep < 32)
+    junk = torch.randint(0, 2**32, raw_p.shape, generator=torch.Generator(dev).manual_seed(5), device=dev,
+                         dtype=torch.int64)
+    raw_g = ar._words_to_int32((raw_p.to(torch.int64) & 0xFFFFFFFF) | (junk & past))
+    for r, t, what in ((raw_g, bits_p, "garbage past each stream"),
+                       (raw_g.view(-1)[capw:].view(-1, capw), bits_p[1:].contiguous(), "rows off 16 bytes")):
+        rows_k, bl_k = ar.prepad_rows(r, t)
+        rows_p, bl_p = ar._prepad_torch(r, t)
+        torch.cuda.synchronize()
+        err = max_abs_err((rows_k, rows_p), (bl_k, bl_p))
+        check(err == 0, f"kernel B differs from its plain version on {what} (max abs err {err})")
+    check(capw % 4 != 0, "the edge rows' pitch is a multiple of 16 bytes")
+    print(f"phase kernel B vs plain on garbage past each stream and on raw rows off 16 bytes: equal, "
+          f"max_abs_err 0", flush=True)
+    rows_p, bl_p = ar._prepad_torch(raw_p, bits_p)
 
     steps = symbols.shape[1]
     syms_k, eof_k = ar.decode_rows(rows_p, bl_p, lengths, steps)
@@ -653,19 +685,13 @@ def huffman_stages(x, n, tag: str) -> dict:
     """
     import torch
 
-    from raisin_tpu_torch.ops import huffman_blocks as hb
     from raisin_tpu_torch.ops import huffman_rows as hr
 
     dev = x.device
-    counts = hb.count_symbols(x, n)
-    codes, code_lens, _, on_host = hb.code_tables(counts)
-    check(not on_host.any(), f"a {tag} block is not ASCII")
-    want = ((counts[:, : hr.NSYM] * code_lens).sum(1) + 7) // 8
-    capw = max(1, (int(want.max()) + 3) // 4)
-    codes_t = torch.from_numpy(codes.view(np.int32)).to(dev)
-    lens_t = torch.from_numpy(code_lens).to(dev)
-    rows_k, bl_k, pad_k = hr.encode_rows(x, n, codes_t, lens_t, capw)
-    rows_p, bl_p, pad_p = hr._encode_rows_torch(x, n, codes_t, lens_t, capw)
+    args, bits, counts = huffman_encode_args(x, n)
+    want = ((bits + 7) // 8).cpu().numpy()
+    rows_k, bl_k, pad_k = hr.encode_rows(*args)  # the wrapper sums the bits itself
+    rows_p, bl_p, pad_p = hr._encode_rows_torch(*args)
     torch.cuda.synchronize()
     err_g = max_abs_err((rows_k, rows_p), (bl_k, bl_p), (pad_k, pad_p))
     check(err_g == 0, f"kernel G differs from its plain version ({tag}, max abs err {err_g})")
@@ -721,6 +747,14 @@ def phase_huffman_vs_plain(dev) -> None:
     m, n = padded(blocks)
     x, n = torch.from_numpy(m).to(dev), torch.from_numpy(n).to(dev)
     huffman_stages(x, n, "edge blocks")
+    # the wrapper holds kernel G's own bit totals against the caller's and raises where they differ
+    args, bits, _ = huffman_encode_args(x, n)
+    try:
+        huffman_rows.encode_rows(*args, bits=bits + (torch.arange(len(bits), device=dev) == 3))
+        raised = False
+    except RuntimeError as e:
+        raised = "block 3 codes to" in str(e)
+    check(raised, "kernel G's wrapper took bit totals that disagree with its own")
     print(f"phase kernels G (huffman encode), H (huffman decode) vs plain: equal on {len(ascii_blocks)} ASCII "
           f"edge blocks, a block with a {longest}-bit code, a single-symbol block, uniform ASCII (7-bit codes) "
           f"and two symbols (1-bit codes), H restores them, max_abs_err 0", flush=True)
@@ -1632,28 +1666,20 @@ def phase_timing_huffman(data: bytes, tok_lens: list[int], dev) -> dict:
     """
     import torch
 
-    from raisin_tpu_torch.ops import escape, huffman_blocks, huffman_rows, lzss_commit, lzss_match
+    from raisin_tpu_torch.ops import huffman_rows
 
-    m, n = padded([data[i : i + BLOCK_SIZE] for i in range(0, len(data), BLOCK_SIZE)])
-    xe, en = escape.escape_blocks(torch.from_numpy(m).to(dev), torch.from_numpy(n).to(dev))
-    L, D = lzss_match.find_matches(xe, en, WINDOW)
-    tok, tl = lzss_commit.commit_tokens(xe, L, D, en)
-    del L, D
+    tok, tl = huffman_input("lzss,huffman container", data, dev)
     check(tl.cpu().tolist() == list(tok_lens), "kernel E's token lengths differ from the lzss,huffman aux table")
-    counts = huffman_blocks.count_symbols(tok, tl)
-    codes, code_lens, _, on_host = huffman_blocks.code_tables(counts)
-    check(not on_host.any(), "a main-path token stream is not ASCII")
-    want = ((counts[:, : huffman_rows.NSYM] * code_lens).sum(1) + 7) // 8
-    capw = max(1, (int(want.max()) + 3) // 4)
-    codes_t = torch.from_numpy(codes.view(np.int32)).to(dev)
-    lens_t = torch.from_numpy(code_lens).to(dev)
+    (_, _, codes_t, lens_t, capw), bits, counts = huffman_encode_args(tok, tl)
+    want = ((bits + 7) // 8).cpu().numpy()
+    kw = encode_kwargs(bits)  # the totals, as encode_blocks hands them over
     B = tok.shape[0]
     toks = float(tl.to(torch.int64).sum())
     payload = float(want.sum())
     results = {}
 
-    ms_g = cuda_ms(lambda: huffman_rows.encode_rows(tok, tl, codes_t, lens_t, capw), 5)
-    rows_k, bl_k, pad_k = huffman_rows.encode_rows(tok, tl, codes_t, lens_t, capw)
+    ms_g = cuda_ms(lambda: huffman_rows.encode_rows(tok, tl, codes_t, lens_t, capw, **kw), 5)
+    rows_k, bl_k, pad_k = huffman_rows.encode_rows(tok, tl, codes_t, lens_t, capw, **kw)
     (rows_p, bl_p, pad_p), plain_g = plain_ms(lambda: huffman_rows._encode_rows_torch(tok, tl, codes_t, lens_t, capw))
     # tokens and tables in, payload out; per symbol a code load, a scan add, a shift and an OR
     results["huffman_encode"] = _result(max_abs_err((rows_k, rows_p), (bl_k, bl_p), (pad_k, pad_p)), ms_g, plain_g,
@@ -1682,17 +1708,40 @@ def huffman_rows_of(x, n) -> tuple:
     kernel G): kernel H's arguments (payload rows, pads, byte lengths, child tables, cap_out)."""
     import torch
 
+    from raisin_tpu_torch.ops import huffman_rows
+
+    args, bits, counts = huffman_encode_args(x, n)
+    rows, bl, pads = huffman_rows.encode_rows(*args, **encode_kwargs(bits))
+    tables = torch.from_numpy(child_tables(counts)).to(x.device)
+    return rows, pads, bl, tables, -(-int(n.max()) // 4) * 4
+
+
+def huffman_encode_args(x, n) -> tuple:
+    """Blocks (x, n) on the card with the code tables the container makes for them (counts on
+    the card, trees on the host): (kernel G's arguments (x, n, codes, code_lens, capw), each
+    block's bit total (B,) int64 on the card, the symbol counts)."""
+    import torch
+
     from raisin_tpu_torch.ops import huffman_blocks, huffman_rows
 
     counts = huffman_blocks.count_symbols(x, n)
     codes, code_lens, _, on_host = huffman_blocks.code_tables(counts)
-    check(not on_host.any(), "a block for kernel H is not ASCII")
-    want = ((counts[:, : huffman_rows.NSYM] * code_lens).sum(1) + 7) // 8
-    capw = max(1, (int(want.max()) + 3) // 4)
+    check(not on_host.any(), "a block for kernel G is not ASCII")
+    nbits = (counts[:, : huffman_rows.NSYM] * code_lens).sum(1)
+    capw = max(1, (int((nbits.max() + 7) // 8) + 3) // 4)
     codes_t = torch.from_numpy(codes.view(np.int32)).to(x.device)
-    rows, bl, pads = huffman_rows.encode_rows(x, n, codes_t, torch.from_numpy(code_lens).to(x.device), capw)
-    tables = torch.from_numpy(child_tables(counts)).to(x.device)
-    return rows, pads, bl, tables, -(-int(n.max()) // 4) * 4
+    args = (x, n, codes_t, torch.from_numpy(code_lens).to(x.device), capw)
+    return args, torch.from_numpy(nbits).to(x.device), counts
+
+
+def encode_kwargs(bits) -> dict:
+    """``bits=`` for a kernel G wrapper that takes the callers' bit totals (this tree's); nothing
+    for an earlier tree's, which sums them itself."""
+    import inspect
+
+    from raisin_tpu_torch.ops import huffman_rows
+
+    return {"bits": bits} if "bits" in inspect.signature(huffman_rows.encode_rows).parameters else {}
 
 
 # kernel H's inputs: the lzss,huffman container's token rows and the huffman container's
@@ -1702,8 +1751,14 @@ HDECODE_INPUTS = ("lzss,huffman container", "huffman container", "huffman stream
                   "uniform ASCII container")
 
 
-def hdecode_input(name: str, data: bytes, dev):
-    """One of HDECODE_INPUTS: ((x, n) the blocks on ``dev``, kernel H's arguments)."""
+def skewed(n: int) -> bytes:
+    """Seeded lower-case bytes, 15 of every 16 of them 'e': the tree gives 'e' a 1-bit code."""
+    rng = np.random.default_rng(31)
+    return np.where(rng.random(n) < 15 / 16, ord("e"), rng.integers(97, 123, n)).astype(np.uint8).tobytes()
+
+
+def huffman_input(name: str, data: bytes, dev):
+    """The blocks (x, n) on ``dev`` of one of HDECODE_INPUTS or HENCODE_INPUTS."""
     import torch
 
     from raisin_tpu_torch.ops import escape, lzss_commit, lzss_match
@@ -1715,14 +1770,20 @@ def hdecode_input(name: str, data: bytes, dev):
     if name == "lzss,huffman container":
         xe, en = escape.escape_blocks(*blocks(data, BLOCK_SIZE))
         L, D = lzss_match.find_matches(xe, en, WINDOW)
-        x, n = lzss_commit.commit_tokens(xe, L, D, en)
-    else:
-        x, n = {
-            "huffman container": lambda: blocks(data, BLOCK_SIZE),
-            "huffman stream": lambda: blocks(data[:STREAM_BYTES], STREAM_BYTES),
-            "uniform ASCII stream": lambda: blocks(uniform_ascii(STREAM_BYTES), STREAM_BYTES),
-            "uniform ASCII container": lambda: blocks(uniform_ascii(MAIN_BYTES), BLOCK_SIZE),
-        }[name]()
+        return lzss_commit.commit_tokens(xe, L, D, en)
+    return {
+        "huffman container": lambda: blocks(data, BLOCK_SIZE),
+        "huffman stream": lambda: blocks(data[:STREAM_BYTES], STREAM_BYTES),
+        "corpus stream": lambda: blocks(data, MAIN_BYTES),
+        "uniform ASCII stream": lambda: blocks(uniform_ascii(STREAM_BYTES), STREAM_BYTES),
+        "uniform ASCII container": lambda: blocks(uniform_ascii(MAIN_BYTES), BLOCK_SIZE),
+        "skewed container": lambda: blocks(skewed(MAIN_BYTES), BLOCK_SIZE),
+    }[name]()
+
+
+def hdecode_input(name: str, data: bytes, dev):
+    """One of HDECODE_INPUTS: ((x, n) the blocks on ``dev``, kernel H's arguments)."""
+    x, n = huffman_input(name, data, dev)
     return (x, n), huffman_rows_of(x, n)
 
 
@@ -1818,6 +1879,128 @@ def phase_timing_hdecode(data: bytes, dev) -> dict:
     return out
 
 
+# kernel G's inputs: the lzss,huffman container's token rows and the huffman container's blocks of
+# the corpus (MAIN_BYTES in BLOCK_SIZE blocks), the huffman stream (STREAM_BYTES at B = 1), the whole
+# corpus as one block (what compress_bytes(..., "huffman") of a MAIN_BYTES file launches), and, in
+# BLOCK_SIZE blocks, uniform random ASCII (7-bit codes) and skewed bytes (a 1-bit code)
+HENCODE_INPUTS = ("lzss,huffman container", "huffman container", "huffman stream", "corpus stream",
+                  "uniform ASCII container", "skewed container")
+
+
+def _encode_bound(x, n, bl) -> tuple[float, str]:
+    """Kernel G's bound, as phase 4's: symbols and tables in, payload out; per symbol a code load,
+    a scan add, a shift and an OR."""
+    import torch
+
+    from raisin_tpu_torch.ops import huffman_rows
+
+    B = x.shape[0]
+    toks, payload = float(n.to(torch.int64).sum()), float(bl.to(torch.int64).sum())
+    return bound(toks + 8 * huffman_rows.NSYM * B + payload + 8 * B, 4 * toks)
+
+
+def time_hencode(data: bytes, dev, plain: bool) -> dict:
+    """Kernel G on each of HENCODE_INPUTS, with the host's bit totals where the wrapper takes them.
+
+    Per input: the blocks' shape, ms per call (CUDA events over 5, after a
+    warm-up; the wrapper's zeroed rows and, in this tree, its check of the
+    totals, which waits for the card, included), ms per call followed by the
+    host's read of byte_lens (over 20; the container's encode reads G's
+    result once a call in every tree, so this is what a call costs it), the
+    device ms of each kernel that one call launches (the profiler's names),
+    the bound, and a digest of (rows, byte_lens, pads) (equal digests from
+    two trees mean equal outputs); with ``plain`` the plain version on the
+    card beside it, outputs compared exactly.
+    """
+    import torch
+
+    from raisin_tpu_torch.ops import huffman_rows
+
+    out = {}
+    for name in HENCODE_INPUTS:
+        x, n = huffman_input(name, data, dev)
+        args, bits, _ = huffman_encode_args(x, n)
+        kw = encode_kwargs(bits)
+        huffman_rows.encode_rows(*args, **kw)  # warm-up
+        ms = cuda_ms(lambda: huffman_rows.encode_rows(*args, **kw), 5)
+        ms_read = cuda_ms(lambda: huffman_rows.encode_rows(*args, **kw)[1].cpu(), 20)
+        passes = device_kernel_ms(lambda: huffman_rows.encode_rows(*args, **kw))
+        rows, bl, pads = huffman_rows.encode_rows(*args, **kw)
+        check(bl.to(torch.int64).tolist() == ((bits + 7) // 8).tolist(), f"kernel G's payload lengths differ ({name})")
+        h = hashlib.sha256(rows.cpu().numpy())
+        h.update(bl.cpu().numpy())
+        h.update(pads.cpu().numpy())
+        bound_ms, bound_by = _encode_bound(x, n, bl)
+        r = {"shape": list(x.shape), "payload_bytes": int(bl.to(torch.int64).sum()), "ms": ms, "ms_with_read": ms_read,
+             "bound_ms": bound_ms, "bound_by": bound_by, "device_kernels_ms": passes, "digest": h.hexdigest()[:32]}
+        if plain:
+            (rows_p, bl_p, pads_p), r["plain_ms"] = plain_ms(lambda: huffman_rows._encode_rows_torch(*args))
+            r["max_abs_err"] = max_abs_err((rows, rows_p), (bl, bl_p), (pads, pads_p))
+            check(r["max_abs_err"] == 0, f"kernel G differs from its plain version on the {name}")
+            del rows_p
+        out[name] = r
+        print(f"phase hencode {name} {r['shape']}, {r['payload_bytes']} payload bytes: kernel {ms:.4f} ms, "
+              f"{ms_read:.4f} ms with the read of byte_lens, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), digest {r['digest']}, device ms by kernel (profiler) "
+              f"{json.dumps(passes)}"
+              + (f", plain {r['plain_ms']:.1f} ms, max_abs_err {r['max_abs_err']}" if plain else ""), flush=True)
+        del x, n, args, rows
+    return out
+
+
+# kernel B's inputs: kernel A's rows of DECODE_INPUTS, as the containers hand them to it
+PREPAD_INPUTS = DECODE_INPUTS
+
+
+def time_prepad(data: bytes, dev, plain: bool) -> dict:
+    """Kernel B on kernel A's rows of each of PREPAD_INPUTS.
+
+    Per input: the rows' shape, ms per call (CUDA events over 10, after a
+    warm-up), the device ms of each kernel one call launches (profiler), the
+    raw bytes that hold stream bits (what B has to read), the bound, and a
+    digest of (rows, byte_lens); with ``plain`` the plain version on the
+    card beside it, outputs compared exactly.
+    """
+    import torch
+
+    from raisin_tpu_torch.ops import arithmetic_rows as ar
+    from raisin_tpu_torch.ops import pipeline
+
+    out = {}
+    for name in PREPAD_INPUTS:
+        payload, n, steps = coder_input(name, data, dev)
+        symbols = pipeline.arith_symbols(payload, n)
+        del payload
+        raw, bits, oflow = ar.encode_bits(symbols, n, ar.capw_bound(steps))
+        check(not oflow.any(), f"kernel A flagged an overflow on {name}")
+        del symbols
+        ar.prepad_rows(raw, bits)  # warm-up
+        ms = cuda_ms(lambda: ar.prepad_rows(raw, bits), 10)
+        passes = device_kernel_ms(lambda: ar.prepad_rows(raw, bits))
+        rows, bl = ar.prepad_rows(raw, bits)
+        h = hashlib.sha256(rows.cpu().numpy())
+        h.update(bl.cpu().numpy())
+        b64 = bits.to(torch.int64)
+        stream = float(((b64 + 7) // 8).sum())
+        out_bytes = float(bl.to(torch.int64).sum())
+        # as phase 4's: the stream's bytes in, the payloads out (the rows' zero tails not counted)
+        bound_ms, bound_by = bound(stream + out_bytes + 8 * raw.shape[0], 6 * out_bytes / 4)
+        r = {"shape": list(raw.shape), "live_raw_bytes": int((4 * ((b64 + 31) // 32)).sum()), "ms": ms,
+             "bound_ms": bound_ms, "bound_by": bound_by, "device_kernels_ms": passes, "digest": h.hexdigest()[:32]}
+        if plain:
+            (rows_p, bl_p), r["plain_ms"] = plain_ms(lambda: ar._prepad_torch(raw, bits))
+            r["max_abs_err"] = max_abs_err((rows, rows_p), (bl, bl_p))
+            check(r["max_abs_err"] == 0, f"kernel B differs from its plain version on {name}")
+            del rows_p
+        out[name] = r
+        print(f"phase prepad {name} {r['shape']}, {r['live_raw_bytes']} live raw bytes: kernel {ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), digest {r['digest']}, device ms by kernel (profiler) "
+              f"{json.dumps(passes)}"
+              + (f", plain {r['plain_ms']:.1f} ms, max_abs_err {r['max_abs_err']}" if plain else ""), flush=True)
+        del raw, bits, rows
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1878,6 +2061,14 @@ def main() -> int:
         hdecode = time_hdecode(bench.make_corpus(MAIN_BYTES), dev)
         print(json.dumps({"card": smi, "huffman_decode": hdecode}))
         return 0
+    if sys.argv[1:] == ["--hencode"]:  # kernel G alone on its six inputs, no plain version
+        hencode = time_hencode(bench.make_corpus(MAIN_BYTES), dev, plain=False)
+        print(json.dumps({"card": smi, "huffman_encode": hencode}))
+        return 0
+    if sys.argv[1:] == ["--prepad"]:  # kernel B alone on its four inputs, no plain version
+        prepad = time_prepad(bench.make_corpus(MAIN_BYTES), dev, plain=False)
+        print(json.dumps({"card": smi, "arith_prepad": prepad}))
+        return 0
     if sys.argv[1:] == ["--commit"]:  # kernel E alone on its seven inputs, no plain version
         commit = time_commit(bench.make_corpus(MAIN_BYTES), dev)
         print(json.dumps({"card": smi, "window": WINDOW, "lzss_commit": commit}))
@@ -1936,6 +2127,12 @@ def main() -> int:
     results.update(phase_timing_lzss(data, aux[0], dev))
     results.update(phase_timing_huffman(data, lh_aux[0], dev))
     results["huffman_decode"].update(phase_timing_hdecode(data, dev))
+    hencode = time_hencode(data, dev, plain=True)
+    results["huffman_encode"]["stream"] = {k: hencode["huffman stream"][k] for k in
+                                           ("ms", "ms_with_read", "device_kernels_ms", "plain_ms", "max_abs_err",
+                                            "bound_ms", "bound_by")}
+    results["huffman_encode"]["inputs"] = hencode
+    results["arith_prepad"]["inputs"] = time_prepad(data, dev, plain=True)
     results.update(phase_timing_events(ar, data[:STREAM_BYTES], dev))
     results["arith_events"]["device_kernels_ms"] = passes
     for name, r in results.items():

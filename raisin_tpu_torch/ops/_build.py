@@ -41,7 +41,7 @@ SIGNATURES = {
     "rsn_lzss_match": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "rsn_lzss_commit": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "rsn_lzss_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "rsn_huffman_encode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "rsn_huffman_encode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "rsn_huffman_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 

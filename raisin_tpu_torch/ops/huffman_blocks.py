@@ -171,18 +171,13 @@ def encode_blocks(x: torch.Tensor, lengths: torch.Tensor, first_block: int = 0):
         rows_np = x[torch.from_numpy(host).to(dev)].cpu().numpy()
         for row, b in zip(rows_np, host.tolist()):
             prefixes[b] = hf.compress(row[: n[b]].tobytes())
-    want = np.where(on_host, 0, ((counts[:, : huffman_rows.NSYM] * code_lens).sum(1) + 7) // 8)
+    nbits = (counts[:, : huffman_rows.NSYM] * code_lens).sum(1)  # 0 for the host blocks, whose tables are zero
+    want = (nbits + 7) // 8
     with record_function("rsnb.enc.huffman"):
-        rows, byte_lens, pads = huffman_rows.encode_rows(
+        # kernel G places the codes behind the pad of these totals and raises where its own differ
+        rows, _, pads = huffman_rows.encode_rows(
             x, lengths, torch.from_numpy(codes.view(np.int32)).to(dev), torch.from_numpy(code_lens).to(dev),
-            max(1, int(want.max() + 3) // 4),
-        )
-        got = byte_lens.cpu().numpy()
-    wrong = np.nonzero(got != want)[0]
-    if wrong.size:
-        b = int(wrong[0])
-        raise RuntimeError(
-            f"kernel G wrote {got[b]} payload bytes for block {first_block + b}, its code table gives {want[b]}"
+            max(1, int(want.max() + 3) // 4), bits=torch.from_numpy(nbits).to(dev),
         )
     with record_function("rsnb.enc.frame"):
         # row b: [prefix, right-aligned][pad byte][payload]; host blocks keep their prefix only

@@ -39,6 +39,7 @@ from raisin_tpu_torch.ops.arithmetic_rows import _check_cuda
 NSYM = 128  # ASCII symbols; the container sends other blocks to the host oracle
 MAX_CODE_BITS = 32
 NTAB = 64  # child-table words: 127 internal nodes x 2 children, one byte each
+TILE = 4096  # kernel G's symbols a tile (csrc/huffman_encode.cu, which holds the same number)
 # kernel H's subsequences (csrc/huffman_decode.cu, which holds the same numbers)
 SUB_BITS = 1024  # bits a subsequence, one thread's
 SPAN_SUBS = 256  # subsequences a CTA
@@ -87,7 +88,29 @@ def _encode_rows_torch(x, lengths, codes, code_lens, capw: int):
     return rows, ((total + pad) // 8).to(torch.int32), pad.to(torch.int32)
 
 
-def encode_rows(x: torch.Tensor, lengths: torch.Tensor, codes: torch.Tensor, code_lens: torch.Tensor, capw: int):
+def tiles(S: int) -> int:
+    """Kernel G's tiles a row of S symbols (at least one, so that every block writes its lengths)."""
+    return max(1, -(-S // TILE))
+
+
+def bit_totals(x: torch.Tensor, lengths: torch.Tensor, code_lens: torch.Tensor) -> torch.Tensor:
+    """Each block's payload bits, (B,) int64: one gather of the code lengths and a sum."""
+    xi = x.to(torch.int64)
+    live = (torch.arange(x.shape[1], device=x.device)[None, :] < lengths.to(torch.int64)[:, None]) & (xi < NSYM)
+    L = code_lens.clamp(0, MAX_CODE_BITS).to(torch.int64).gather(1, xi.clamp(max=NSYM - 1))
+    return torch.where(live, L, 0).sum(1)
+
+
+def _check_totals(got: torch.Tensor, bits: torch.Tensor) -> None:
+    """Raise where the encode's own bit totals differ from the caller's."""
+    wrong = torch.nonzero(got != bits.to(got.device, torch.int64))
+    if wrong.numel():
+        b = int(wrong[0, 0])
+        raise RuntimeError(f"huffman encode_rows: block {b} codes to {int(got[b])} bits, the caller gave {int(bits[b])}")
+
+
+def encode_rows(x: torch.Tensor, lengths: torch.Tensor, codes: torch.Tensor, code_lens: torch.Tensor, capw: int,
+                bits: torch.Tensor | None = None):
     """Huffman encode of B blocks into `.rsn` payload rows (kernel G, or its plain version).
 
     Args:
@@ -95,34 +118,56 @@ def encode_rows(x: torch.Tensor, lengths: torch.Tensor, codes: torch.Tensor, cod
       lengths: (B,) int32.
       codes, code_lens: (B, 128) int32 code tables (module docstring).
       capw: row capacity in 32-bit words.
+      bits: (B,) int64, each block's payload bits (the sum of its code
+        lengths), which place every code behind its pad; None computes them
+        with :func:`bit_totals` on the tensors' device.
 
     Returns (rows (B, 4 * capw) uint8, byte_lens (B,) int32, pads (B,)
     int32): row b's first ``byte_lens[b]`` bytes are the block's payload
     after the pad byte. A payload longer than the row is cut at the row's
     end while ``byte_lens`` keeps its full length, so callers size
-    ``capw`` from the exact bit count and compare.
+    ``capw`` from the exact bit count and compare. Raises RuntimeError
+    where the encode's own bit total differs from ``bits``.
     """
     if x.device.type == "cpu":
-        return _encode_rows_torch(x, lengths, codes, code_lens, capw)
+        out = _encode_rows_torch(x, lengths, codes, code_lens, capw)
+        if bits is not None:
+            _check_totals(bit_totals(x, lengths, code_lens), bits)
+        return out
     B, S = _check_cuda("huffman encode_rows", x, torch.uint8, 2)
     _check_cuda("huffman encode_rows", lengths, torch.int32, 1, (B,), x.device)
     for t in (codes, code_lens):
         _check_cuda("huffman encode_rows", t, torch.int32, 2, (B, NSYM), x.device)
     dev = x.device
-    rows = torch.zeros((B, 4 * capw), dtype=torch.uint8, device=dev)
-    byte_lens = torch.zeros(B, dtype=torch.int32, device=dev)
-    pads = torch.zeros(B, dtype=torch.int32, device=dev)
+    if bits is None:
+        bits = bit_totals(x, lengths, code_lens)
+    _check_cuda("huffman encode_rows", bits, torch.int64, 1, (B,), dev)
+    n_tiles = B * tiles(S)
+    if n_tiles >= 2**31:
+        raise ValueError("huffman encode_rows: too many tiles for the kernel")
+    # one zeroed buffer (a fill launch a call): the rows, then a status word a tile and a word of two
+    # counts, the ticket (low half) and the blocks whose totals differ from bits (high half)
+    row_words = -(-B * capw // 2)
+    zeroed = torch.zeros(row_words + n_tiles + 1, dtype=torch.int64, device=dev)
+    rows = zeroed.view(torch.uint8)[: 4 * B * capw].view(B, 4 * capw)
+    work = zeroed[row_words:]
+    # the kernel writes every block's totals, byte_lens and pads
+    out = torch.empty(2 * B, dtype=torch.int64, device=dev)
+    totals, lens = out[:B], out[B:].view(torch.int32)
+    byte_lens, pads = lens[:B], lens[B:]
     if B == 0:
         return rows, byte_lens, pads
     lib = _build.library()
     with torch.cuda.device(dev):
         encode_rows.launches += 1
         rc = lib.rsn_huffman_encode(
-            x.data_ptr(), lengths.data_ptr(), codes.data_ptr(), code_lens.data_ptr(),
-            rows.data_ptr(), byte_lens.data_ptr(), pads.data_ptr(), B, S, capw,
+            x.data_ptr(), lengths.data_ptr(), codes.data_ptr(), code_lens.data_ptr(), bits.data_ptr(),
+            rows.data_ptr(), byte_lens.data_ptr(), pads.data_ptr(), totals.data_ptr(), work.data_ptr(), B, S, capw,
             _build.stream_handle(dev),
         )
     _build.check("rsn_huffman_encode", rc)
+    if int(work[-1]) >> 32:
+        _check_totals(totals, bits)
     return rows, byte_lens, pads
 
 

@@ -1,6 +1,7 @@
-// Host emulation of the CUDA features that kernels A, C, E, F, H and I
-// (csrc/arith_encode.cu, csrc/arith_decode.cu, csrc/lzss_commit.cu,
-// csrc/lzss_decode.cu, csrc/huffman_decode.cu, csrc/arith_events.cu) use, so
+// Host emulation of the CUDA features that kernels A, B, C, E, F, G, H and I
+// (csrc/arith_encode.cu, csrc/arith_prepad.cu, csrc/arith_decode.cu,
+// csrc/lzss_commit.cu, csrc/lzss_decode.cu, csrc/huffman_encode.cu,
+// csrc/huffman_decode.cu, csrc/arith_events.cu) use, so
 // that their sources compile with g++ and run on the CPU in the tests: each
 // thread of a CTA runs as a thread of its own, all of a CTA's threads at
 // once; the warp intrinsics (shuffles, reductions, __syncwarp) exchange
@@ -10,7 +11,9 @@
 // them). Only warp-uniform control flow around a warp
 // intrinsic, and CTA-uniform control flow around __syncthreads, is
 // supported, which is all the kernels have. Shared memory is a static
-// variable: the grid's CTAs run one after another. Dynamic shared memory
+// variable: the grid's CTAs run one after another, row by row of a 2D grid
+// (dim3), so a CTA that waits on flags an earlier CTA set (kernel G's
+// look-back) finds them set. Dynamic shared memory
 // (`extern __shared__ T name[];`) takes EMU_DYNAMIC_SHARED_BYTES, the most a
 // CTA of an H100 may ask for: the tests rewrite the declaration to
 // `__shared__ T name[EMU_DYNAMIC_SHARED_BYTES];`, as they rewrite launches
@@ -33,6 +36,10 @@
 #define __shared__ static
 
 struct dim3e { unsigned x = 0, y = 0, z = 0; };
+struct dim3 {
+    unsigned x, y, z;
+    dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
+};
 inline thread_local dim3e threadIdx, blockIdx;
 inline dim3e blockDim, gridDim;
 struct uint2 { unsigned x, y; };
@@ -56,6 +63,7 @@ using std::min;
 struct WarpExchange {
     std::barrier<> bar{32};
     unsigned slot[32];
+    unsigned long long slot64[32];
 };
 inline thread_local WarpExchange* g_warp = nullptr;
 inline thread_local std::barrier<>* g_cta = nullptr;
@@ -97,6 +105,16 @@ inline unsigned __shfl_up_sync(unsigned, unsigned v, unsigned delta) {
     const unsigned lane = lane_id();
     return exchange(v, [&](unsigned* s) { return lane >= delta ? s[lane - delta] : s[lane]; });
 }
+template <class T>
+inline T __shfl_xor_sync(unsigned, T v, int mask) {  // 32- or 64-bit values
+    static_assert(sizeof(T) <= 8);
+    const unsigned lane = lane_id();
+    g_warp->slot64[lane] = (unsigned long long)v;
+    g_warp->bar.arrive_and_wait();
+    const T r = (T)g_warp->slot64[(lane ^ (unsigned)mask) & 31];
+    g_warp->bar.arrive_and_wait();
+    return r;
+}
 inline unsigned __ballot_sync(unsigned, int pred) {
     const unsigned lane = lane_id();
     return exchange(pred ? 1u << lane : 0u, [](unsigned* s) {
@@ -133,12 +151,13 @@ inline unsigned __funnelshift_lc(unsigned lo, unsigned hi, unsigned sh) {
 template <class T>
 inline T __ldg(const T* p) { return *p; }
 
-// Run a kernel: the CTAs of the grid one after another, all threads of a CTA at
-// once. The threads are made once a launch and run every CTA, meeting at a
-// barrier between two CTAs.
+// Run a kernel: the CTAs of the grid one after another (x fastest), all threads
+// of a CTA at once. The threads are made once a launch and run every CTA,
+// meeting at a barrier between two CTAs.
 template <class K, class... A>
-void emu_launch(K kernel, unsigned grid, unsigned block, A... args) {
-    gridDim.x = grid;
+void emu_launch(K kernel, dim3 grid, unsigned block, A... args) {
+    gridDim.x = grid.x;
+    gridDim.y = grid.y;
     blockDim.x = block;
     const auto warps = std::make_unique<WarpExchange[]>((block + 31) / 32);
     std::barrier<> cta((std::ptrdiff_t)block);
@@ -148,10 +167,13 @@ void emu_launch(K kernel, unsigned grid, unsigned block, A... args) {
             threadIdx.x = l;
             g_warp = &warps[l / 32];
             g_cta = &cta;
-            for (unsigned b = 0; b < grid; ++b) {
-                blockIdx.x = b;
-                kernel(args...);
-                cta.arrive_and_wait();
+            for (unsigned y = 0; y < grid.y; ++y) {
+                for (unsigned b = 0; b < grid.x; ++b) {
+                    blockIdx.x = b;
+                    blockIdx.y = y;
+                    kernel(args...);
+                    cta.arrive_and_wait();
+                }
             }
         });
     }
