@@ -12,6 +12,7 @@
     python3 chip_smoke.py --hencode  # kernel G alone: build, then time_hencode without the plain version
     python3 chip_smoke.py --prepad   # kernel B alone: build, then time_prepad without the plain version
     python3 chip_smoke.py --paths    # phase 3 alone: the main paths and the streams, without traces
+    python3 chip_smoke.py --cli      # the cli phase alone, after the default container and the wide window
 
 Phases, each printing one line; any failure exits nonzero before the
 result line:
@@ -64,6 +65,20 @@ result line:
    (raw streams decode on the host, as in the JAX package), one through
    ``compress_file``/``decompress_file`` in raw and container mode, and one
    traced ``lzss,arithmetic`` compress;
+3b. the cli phase: the port's command line (``raisin_tpu_torch.cli.main``)
+   as a user runs it, on the card. ``raisin -container`` on the 64 MiB
+   corpus must write phase 3's default container byte for byte and launch
+   kernels A, B, D and E; ``grape`` must give the corpus back and launch C
+   and F; the same compress under ``-profile=DIR`` must leave one Chrome
+   trace naming kernels D and A. On the 1 MiB stream, ``raisin`` (auto: the
+   card, D, E and I) and ``raisin -backend=native`` must write
+   ORACLE_STREAM's bytes and ``grape`` must give it back (a raw stream
+   decodes with the native C runtime), and the compress and decompress
+   MB/s of the auto order and of each backend is printed for CLI_STREAMS
+   (over TIMED_RUNS runs, host once: its copies are Python). ``raisin
+   -benchmark -backend=device`` on CLI_BENCH_BYTES must print five lossless
+   rows and launch D, E, G, H and I; one gzip container of CLI_HOST_BYTES
+   (block by block through the engine) must round-trip;
 4. each kernel at its main path's shapes, timed with CUDA events, beside
    its plain version, outputs compared exactly (the plain A and C run on
    the first PLAIN_BLOCKS blocks at full step length, the plain I on the
@@ -127,7 +142,8 @@ the kernel's rounds where it reports them; ``--hencode`` does the same for
 kernel G on ``HENCODE_INPUTS`` (also each call followed by the host's read
 of byte_lens, as the container reads G's result) and ``--prepad`` for
 kernel B on ``PREPAD_INPUTS``, each with its device kernels' ms from the
-profiler; ``--paths`` runs phase 1 and then
+profiler; ``--cli`` runs phase 1, the default container, the WIDE_WINDOW
+container and the cli phase; ``--paths`` runs phase 1 and then
 phase 3 without its traces and without the WIDE_WINDOW container (an
 earlier tree writes an aux table there). Copied into another checkout of the
 repository (an earlier commit, say), the script measures that tree's code
@@ -201,6 +217,12 @@ ORACLE_STREAM = {
     "lzss,arithmetic": ("412b3ce7f53d52966faf766423478f56", 374556, "e7de00ff37b7f3157b8390fdf3bdb052"),
     "arithmetic": ("412b3ce7f53d52966faf766423478f56", 576680, "4a0d0b800446c548ae9cc868b099d444"),
 }
+# The cli phase: the benchmark table's input and the host-pipeline (gzip) container's
+CLI_BENCH_BYTES = 256 << 10
+CLI_HOST_BYTES = 4 << 20
+# the raw streams timed on each backend (native, device, host)
+CLI_STREAMS = ("lzss", "arithmetic", "lzss,arithmetic")
+
 # the card's peaks for bound_ms: the H100 SXM data sheet's memory rate, and
 # its INT32 issue rate: 132 SMs x 64 INT32 lanes (Hopper architecture) at the
 # 1.98 GHz that the data sheet's 67 TFLOP/s float32 implies (132 SMs x 128
@@ -858,7 +880,8 @@ def phase_main(data: bytes, algorithms: tuple[str, ...], wrappers: dict, reset, 
 
 def phase_wide_window(data: bytes, dev) -> None:
     """Phase 3: an lzss,arithmetic container above window 8191 through the entry points. It
-    carries no aux table, as the JAX package writes it, and decodes block by block on the host."""
+    carries no aux table, as the JAX package writes it, and decodes block by block through
+    decompress_bytes (under the auto order, whose raw decodes are the native C runtime)."""
     from raisin_tpu_torch.parallel import blocks
 
     part = data[:WIDE_BYTES]
@@ -868,13 +891,16 @@ def phase_wide_window(data: bytes, dev) -> None:
     algorithms, _, orig, payloads, aux, window = blocks.parse_container(c)
     check((algorithms, orig, window, aux) == (LZ, len(part), WIDE_WINDOW, []),
           f"the lzss,arithmetic container at window {WIDE_WINDOW} carries an aux table or the wrong header")
-    t0 = time.perf_counter()
-    check(blocks.decompress_container(c, device=dev) == part,
-          f"the lzss,arithmetic container at window {WIDE_WINDOW} did not round-trip")
-    t_dec = time.perf_counter() - t0
+    t_dec = []
+    for _ in range(2):  # the first decode may build the native C runtime
+        t0 = time.perf_counter()
+        check(blocks.decompress_container(c, device=dev) == part,
+              f"the lzss,arithmetic container at window {WIDE_WINDOW} did not round-trip")
+        t_dec.append(time.perf_counter() - t0)
     print(f"phase wide window: lzss,arithmetic container of {len(part)} B at window {WIDE_WINDOW}, "
           f"{len(payloads)} blocks, no aux table, ratio {len(c) / len(part) * 100:.4f}%; compress "
-          f"{t_enc * 1e3:.1f} ms on the card, decompress {t_dec * 1e3:.1f} ms block by block on the host, "
+          f"{t_enc * 1e3:.1f} ms on the card, decompress block by block on the host (decompress_bytes, "
+          f"auto order) {t_dec[0] * 1e3:.1f} ms the first time, {t_dec[1] * 1e3:.1f} ms the second, "
           f"round trip exact", flush=True)
 
 
@@ -979,6 +1005,169 @@ def phase_stream(data: bytes, wrappers: dict, reset, card: str, dev, trace: bool
                   flush=True)
         print(f"phase trace stream {name}, ms under torch.profiler: " + json.dumps(trace), flush=True)
     return launches
+
+
+def run_cli(argv: list[str]) -> tuple[int, str]:
+    """raisin_tpu_torch.cli.main(argv) on the card -> (exit code, what it printed)."""
+    import contextlib
+    import io
+
+    from raisin_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    return rc, out.getvalue()
+
+
+def table_rows(out: str) -> list[list[str]]:
+    """The benchmark table's body rows (the header and the footer dropped), each cell stripped."""
+    rows = [[c.strip() for c in line.strip("│").split("│")] for line in out.splitlines() if line.startswith("│")]
+    return rows[1:-1]
+
+
+def phase_cli(data: bytes, lz_container: bytes, wrappers: dict, reset, card: str, dev) -> None:
+    """The cli phase: the port's `raisin`/`grape` command line on the card, as a user runs it.
+
+    The default container of the whole corpus (kernels A, B, D and E), equal to phase 3's
+    ``compress_container``, and its decode by ``grape`` (C and F); the same compress under
+    ``-profile``, whose trace must name kernels D and A; the raw 1 MiB stream, auto (the card: D,
+    E and I) against ``-backend=native``, with the MB/s of auto and each backend on CLI_STREAMS; the
+    benchmark table with ``-backend=device`` on CLI_BENCH_BYTES, every row lossless; one gzip
+    container (a pipeline without a device path) of CLI_HOST_BYTES round trip.
+    """
+    import glob
+    import os
+    import tempfile
+
+    import torch
+
+    import raisin_tpu_torch as rt
+    from raisin_tpu_torch.engine import registry
+
+    def launched(names: tuple[str, ...], what: str) -> dict:
+        got = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
+        check(all(got.get(k, 0) > 0 for k in names), f"{what} did not launch all of {names}: {got}")
+        return got
+
+    def read(path: str) -> bytes:
+        with open(path, "rb") as f:
+            return f.read()
+
+    def write(path: str, b: bytes) -> None:
+        with open(path, "wb") as f:
+            f.write(b)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "corpus.bin")
+        write(src, data)
+        reset()
+        t0 = time.perf_counter()
+        rc, _ = run_cli(["raisin", "-container", src])
+        torch.cuda.synchronize()
+        t_enc = time.perf_counter() - t0
+        check(rc == 0, f"raisin -container exited {rc}")
+        enc = launched(("arith_encode", "arith_prepad", "lzss_match", "lzss_commit"), "raisin -container")
+        check(sha(read(src + ".rsn")) == sha(lz_container), "raisin -container differs from compress_container")
+        os.remove(src)
+        reset()
+        t0 = time.perf_counter()
+        rc, _ = run_cli(["grape", src + ".rsn"])
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+        check(rc == 0 and read(src) == data and not os.path.exists(src + ".rsn"), "grape did not round-trip")
+        dec = launched(("arith_decode", "lzss_decode"), "grape")
+        trace_dir = os.path.join(tmp, "trace")
+        rc, _ = run_cli(["raisin", "-container", src, f"-out={src}.p", f"-profile={trace_dir}"])
+        check(rc == 0 and sha(read(src + ".p")) == sha(lz_container), "raisin -container -profile differs")
+        traces = glob.glob(os.path.join(trace_dir, "*.json"))
+        check(len(traces) == 1, f"-profile wrote {len(traces)} trace files")
+        with open(traces[0]) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        found = {k: any(f"{k}_kernel" in n for n in names) for k in ("lzss_match", "arith_encode")}
+        check(all(found.values()) and "rsnb.compress" in names, f"the -profile trace lacks a kernel: {found}")
+        print(f"phase cli container: raisin -container on {len(data)} B = phase 3's container "
+              f"({len(lz_container)} B) in {t_enc * 1e3:.1f} ms, launches {enc}; grape round trip exact in "
+              f"{t_dec * 1e3:.1f} ms, launches {dec}; -profile wrote {os.path.basename(traces[0])} "
+              f"({os.path.getsize(traces[0])} B) naming {sorted(found)} and rsnb.compress; card {card}", flush=True)
+
+        stream = data[:STREAM_BYTES]
+        s = os.path.join(tmp, "stream.bin")
+        write(s, stream)
+        reset()
+        rc, _ = run_cli(["raisin", s, f"-out={s}.auto"])
+        check(rc == 0, f"raisin (auto) exited {rc}")
+        auto_launches = launched(("lzss_match", "lzss_commit", "arith_events"), "raisin (auto)")
+        try:
+            rc, _ = run_cli(["raisin", "-backend=native", s, f"-out={s}.native"])
+        finally:
+            registry.set_preferred_backend("auto")
+        check(rc == 0, f"raisin -backend=native exited {rc}")
+        auto = read(s + ".auto")
+        _, size, out_sha = ORACLE_STREAM["lzss,arithmetic"]
+        check(read(s + ".native") == auto and (len(auto), sha(auto)) == (size, out_sha),
+              "raisin and raisin -backend=native wrote different streams, or not ORACLE_STREAM's")
+        rc, _ = run_cli(["grape", f"{s}.auto", f"-out={s}.back"])
+        check(rc == 0 and read(s + ".back") == stream, "grape of the raw stream did not round-trip")
+        rates = {}
+        for name in CLI_STREAMS:
+            algorithms = name.split(",")
+            rates[name] = {}
+            for backend in ("native", "auto", "device", "host"):
+                runs = 1 if backend == "host" else TIMED_RUNS  # the host copies are Python
+                t_c, t_d = [], []
+                for _ in range(runs):
+                    t0 = time.perf_counter()
+                    c = rt.compress_bytes(stream, algorithms, backend=backend, device=dev)
+                    torch.cuda.synchronize()
+                    t_c.append(time.perf_counter() - t0)
+                    t0 = time.perf_counter()
+                    back = rt.decompress_bytes(c, algorithms, backend=backend, device=dev)
+                    t_d.append(time.perf_counter() - t0)
+                    check(back == stream, f"the {name} stream did not round-trip on {backend}")
+                if backend == "native":
+                    want = c
+                check(c == want, f"the {name} stream on {backend} differs from native's")
+                mb = len(stream) / 1e6
+                rates[name][backend] = {"compress_mbs": round(mb / float(np.median(t_c)), 3),
+                                        "decompress_mbs": round(mb / float(np.median(t_d)), 3), "runs": runs}
+        print(f"phase cli streams: raisin (auto: the card) and raisin -backend=native write the same "
+              f"{len(auto)} B = ORACLE_STREAM, auto launches {auto_launches}, grape round trip exact; MB/s of "
+              f"compress_bytes and decompress_bytes on {len(stream)} B (median of runs): {json.dumps(rates)}; "
+              f"card {card}", flush=True)
+
+        b = os.path.join(tmp, "bench.bin")
+        write(b, data[:CLI_BENCH_BYTES])
+        reset()
+        t0 = time.perf_counter()
+        try:
+            rc, out = run_cli(["raisin", "-benchmark", "-backend=device", b])
+        finally:
+            registry.set_preferred_backend("auto")
+        t_bench = time.perf_counter() - t0
+        rows = table_rows(out)
+        check(rc == 0 and len(rows) == 5 and all(r[-1] == "true" and "DNF" not in r for r in rows),
+              f"raisin -benchmark -backend=device: rows {rows}")
+        bench_launches = launched(("lzss_match", "lzss_commit", "arith_events", "huffman_encode", "huffman_decode"),
+                                  "raisin -benchmark -backend=device")
+        print(f"phase cli benchmark: raisin -benchmark -backend=device on {CLI_BENCH_BYTES} B in {t_bench:.1f} s, "
+              f"rows (engine, time, ratio, entropies, lossless) {rows}, launches {bench_launches}", flush=True)
+
+        g = os.path.join(tmp, "gzip.bin")
+        write(g, data[:CLI_HOST_BYTES])
+        t0 = time.perf_counter()
+        rc, _ = run_cli(["raisin", "-container", "-algorithm=gzip", g])
+        t_enc = time.perf_counter() - t0
+        check(rc == 0 and read(g + ".rsn")[:4] == b"RSNB", "raisin -container -algorithm=gzip failed")
+        size = os.path.getsize(g + ".rsn")
+        os.remove(g)
+        t0 = time.perf_counter()
+        rc, _ = run_cli(["grape", g + ".rsn"])
+        t_dec = time.perf_counter() - t0
+        check(rc == 0 and read(g) == data[:CLI_HOST_BYTES], "the gzip container did not round-trip")
+        print(f"phase cli host container: gzip container of {CLI_HOST_BYTES} B, {size} B, block by block "
+              f"through compress_bytes in {t_enc * 1e3:.1f} ms and decompress_bytes in {t_dec * 1e3:.1f} ms, "
+              f"round trip exact", flush=True)
 
 
 def _result(err: int, ms: float, plain: float, nbytes: float, ops: float) -> dict:
@@ -2077,6 +2266,12 @@ def main() -> int:
         walk = time_walk(bench.make_corpus(MAIN_BYTES), dev)
         print(json.dumps({"card": smi, "window": WINDOW, "lzss_decode": walk}))
         return 0
+    if sys.argv[1:] == ["--cli"]:  # the cli phase alone, after phase 3's default container
+        data = bench.make_corpus(MAIN_BYTES)
+        c = blocks.compress_container(data, LZ, block_size=BLOCK_SIZE, window=WINDOW, device=dev)
+        phase_wide_window(data, dev)
+        phase_cli(data, c, every, reset, card, dev)
+        return 0
     if sys.argv[1:] == ["--paths"]:  # phase 3 alone: the main paths and the streams, no traces
         data = bench.make_corpus(MAIN_BYTES)
         for algorithms, wrappers in ((("arithmetic",), arith), (LZ, {**arith, **lz}), (LZ_HUFF, {**lz, **huff}),
@@ -2096,8 +2291,8 @@ def main() -> int:
     _, _, _, payloads, _, _ = blocks.parse_container(c)
     check_oracle_blocks(data, payloads)
     traces = {"arithmetic": trace_container(data, dev, ("arithmetic",))}
-    launches, c, tiles = phase_main(data, LZ, {**arith, **lz}, reset, card, dev)
-    _, _, _, lz_payloads, aux, _ = blocks.parse_container(c)
+    launches, lz_container, tiles = phase_main(data, LZ, {**arith, **lz}, reset, card, dev)
+    _, _, _, lz_payloads, aux, _ = blocks.parse_container(lz_container)
     check_oracle_blocks_lzss(data, lz_payloads, aux[0])
     traces["lzss,arithmetic"] = trace_container(data, dev, LZ)
     huffman_blocks.reset_host_split()
@@ -2120,6 +2315,7 @@ def main() -> int:
     phase_main(data, ("lzss",), lz, reset, card, dev)
     phase_wide_window(data, dev)
     launches_stream = phase_stream(data[:STREAM_BYTES], every, reset, card, dev)
+    phase_cli(data, lz_container, every, reset, card, dev)
 
     # phase 4: kernels at the main paths' shapes, beside their plain versions
     passes = events_passes(data, dev)

@@ -22,6 +22,7 @@ from typing import Iterable
 
 from torch.profiler import record_function
 
+from raisin_tpu_torch import native
 from raisin_tpu_torch.engine.registry import expand_algorithms, get_codec
 from raisin_tpu_torch.formats import lzss
 from raisin_tpu_torch.ops import lzss_stream
@@ -42,9 +43,9 @@ def compress_bytes(
     ``window`` overrides the LZSS search window (lz.NewWriterLevel parity,
     lzss.go:42); other layers ignore it. Decompression never needs it (the
     token format carries explicit distances). Every layer's codec is looked
-    up before any runs, so an unknown or unported one raises first.
+    up before any runs, so an unknown one raises first.
     """
-    codecs = [get_codec(name, backend, device) for name in expand_algorithms(list(algorithms))]
+    codecs = [get_codec(name, backend, device, window) for name in expand_algorithms(list(algorithms))]
     for codec in codecs:
         with record_function("stream.compress"):
             if codec.name == "lzss" and window not in (None, DEFAULT_WINDOW_SIZE):
@@ -56,6 +57,8 @@ def compress_bytes(
 
 def _lzss_compress_windowed(data: bytes, window: int, backend: str, device=None) -> bytes:
     """LZSS compress at a non-default window on the selected backend."""
+    if backend == "native":
+        return native.lzss_compress(data, window)
     if backend == "device":
         return lzss_stream.compress(data, window, device=device)
     return lzss.compress(data, window)

@@ -1,7 +1,9 @@
 """LZSS codec, exact `.rsn` wire format: the port's copy of the host oracle.
 
 A copy of raisin_tpu/formats/lzss_ref.py, messages included (the port
-imports nothing of the JAX package). It is the ``host`` backend of ``lzss``
+imports nothing of the JAX package), whose match search doubles the length
+instead of growing it a byte at a time (:func:`_match_at`), with the same
+bytes out. It is the ``host`` backend of ``lzss``
 and decodes raw LZSS streams, as the JAX package does
 (raisin_tpu/ops/lzss_jax.py:338-342).
 
@@ -116,26 +118,7 @@ def find_matches(enc: bytes, window_size: int) -> list[tuple[int, int]]:
     the trailing window, D from the leftmost occurrence of that longest
     string.
     """
-    n = len(enc)
-    refs: list[tuple[int, int]] = [(0, 0)] * n
-    for i in range(n):
-        start = max(0, i - window_size) if window_size > 0 else 0
-        window = enc[start:i]
-        if not window:
-            continue
-        k = 1
-        idx = window.find(enc[i : i + 1])
-        if idx < 0:
-            continue
-        best_idx = idx
-        while i + k < n:
-            nxt = window.find(enc[i : i + k + 1])
-            if nxt < 0:
-                break
-            k += 1
-            best_idx = nxt
-        refs[i] = (len(window) - best_idx, k)
-    return refs
+    return [_match_at(enc, i, window_size) for i in range(len(enc))]
 
 
 def commit_tokens(enc: bytes, refs: list[tuple[int, int]]) -> bytes:
@@ -160,25 +143,36 @@ def commit_tokens(enc: bytes, refs: list[tuple[int, int]]) -> bytes:
 
 
 def _match_at(enc: bytes, i: int, window_size: int) -> tuple[int, int]:
-    """(distance, length) of the greedy match at one position (the body of
-    find_matches, reused by the fused compress loop)."""
+    """(distance, length) of the greedy match at one position (find_matches
+    and the fused compress loop).
+
+    The JAX package's oracle grows the length one byte a search; a prefix of
+    a string in the window is in the window too, so the longest length is
+    found here by doubling and then halving it, with the same result:
+    O(log L) searches instead of L, which keeps matches of ~10^6 bytes at
+    windows of 2^21 tractable.
+    """
     n = len(enc)
     start = max(0, i - window_size) if window_size > 0 else 0
     window = enc[start:i]
-    if not window:
+    if not window or window.find(enc[i : i + 1]) < 0:
         return (0, 0)
-    k = 1
-    idx = window.find(enc[i : i + 1])
-    if idx < 0:
-        return (0, 0)
-    best_idx = idx
-    while i + k < n:
-        nxt = window.find(enc[i : i + k + 1])
-        if nxt < 0:
+    lo = 1  # a length known to occur
+    hi = min(n - i, len(window)) + 1  # a length known not to (or past the end)
+    step = 1
+    while lo + step < hi:
+        if window.find(enc[i : i + lo + step]) < 0:
+            hi = lo + step
             break
-        k += 1
-        best_idx = nxt
-    return (len(window) - best_idx, k)
+        lo += step
+        step *= 2
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if window.find(enc[i : i + mid]) < 0:
+            hi = mid
+        else:
+            lo = mid
+    return (len(window) - window.find(enc[i : i + lo]), lo)
 
 
 def compress(data: bytes, window_size: int = DEFAULT_WINDOW_SIZE) -> bytes:

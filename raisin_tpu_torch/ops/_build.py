@@ -6,6 +6,11 @@ process per source, in parallel, then a link) and loaded with ctypes. The
 sources are ``raisin_tpu_torch/csrc/*.cu`` (plus their ``*.cuh``); the
 library lands in ``raisin_tpu_torch/_build/``. Nothing here runs at import
 time, and a failed build raises: no caller falls back to a plain version.
+Threads may ask for the library at once (the benchmark table runs each
+row in its own thread): :func:`build` holds a module lock, and
+:func:`library` loads the library once under the same lock, so a process
+builds once; the objects and the temporary library are named by process
+and thread, so processes do not collide either.
 
 Every exported function returns ``cudaGetLastError()`` after its launch;
 :func:`check` turns a nonzero code into a RuntimeError.
@@ -14,11 +19,11 @@ Every exported function returns ``cudaGetLastError()`` after its launch;
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -44,6 +49,10 @@ SIGNATURES = {
     "rsn_huffman_encode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "rsn_huffman_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
+
+
+_lib = None
+_lock = threading.RLock()
 
 
 class KernelBuildError(RuntimeError):
@@ -81,51 +90,58 @@ def build() -> Path:
     Each source compiles in its own nvcc process, all started together;
     one more nvcc call links the objects into the library.
     """
-    nvcc = _nvcc()
-    version = subprocess.run([nvcc, "--version"], capture_output=True, text=True, check=True).stdout
-    so_path = BUILD_DIR / library_name(version)
-    if so_path.exists():
+    with _lock:
+        nvcc = _nvcc()
+        version = subprocess.run([nvcc, "--version"], capture_output=True, text=True, check=True).stdout
+        so_path = BUILD_DIR / library_name(version)
+        if so_path.exists():
+            return so_path
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tag = f"{so_path.stem}.{os.getpid()}.{threading.get_ident()}"
+        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        jobs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+            cmd = [nvcc, *compile_flags, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        failed = []
+        for cmd, _, proc in jobs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({' '.join(cmd)}):\n{err}")
+        objs = [obj for _, obj, _ in jobs]
+        try:
+            if failed:
+                raise KernelBuildError("\n".join(failed))
+            tmp = BUILD_DIR / f"{tag}.so.tmp"
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(o) for o in objs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise KernelBuildError(f"nvcc failed ({' '.join(cmd)}):\n{proc.stderr}")
+            os.replace(tmp, so_path)
+        finally:
+            for obj in objs:
+                obj.unlink(missing_ok=True)
         return so_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tag = f"{so_path.stem}.{os.getpid()}"
-    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
-    jobs = []
-    for src in sorted(CSRC.glob("*.cu")):
-        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
-        cmd = [nvcc, *compile_flags, "-c", "-o", str(obj), str(src)]
-        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-    failed = []
-    for cmd, _, proc in jobs:
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed ({' '.join(cmd)}):\n{err}")
-    objs = [obj for _, obj, _ in jobs]
-    try:
-        if failed:
-            raise KernelBuildError("\n".join(failed))
-        tmp = so_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(o) for o in objs)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise KernelBuildError(f"nvcc failed ({' '.join(cmd)}):\n{proc.stderr}")
-        os.replace(tmp, so_path)
-    finally:
-        for obj in objs:
-            obj.unlink(missing_ok=True)
-    return so_path
 
 
-@functools.cache
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    lib.rsn_error_string.argtypes = [ctypes.c_int]
-    lib.rsn_error_string.restype = ctypes.c_char_p
-    return lib
+    """The loaded kernel library (built on first call, once for all threads)."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.rsn_error_string.argtypes = [ctypes.c_int]
+        lib.rsn_error_string.restype = ctypes.c_char_p
+        _lib = lib
+        return lib
 
 
 def check(name: str, rc: int) -> None:

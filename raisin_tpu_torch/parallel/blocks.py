@@ -1,6 +1,6 @@
 """RSNB block container on PyTorch: the port of raisin_tpu/parallel/blocks.py.
 
-The port covers five pipelines, encode and decode: the default
+Five pipelines run on the card, encode and decode: the default
 ``("lzss", "arithmetic")``, ``("arithmetic",)``, ``("lzss",)``,
 ``("huffman",)`` and ``("lzss", "huffman")``. Each block is an exact
 single-stream `.rsn` payload of its pipeline, and the ``lzss,arithmetic``
@@ -8,11 +8,13 @@ and ``lzss,huffman`` containers carry the aux table of per-block
 token-stream lengths, except ``lzss,arithmetic`` above window 8191, which
 carries none, as in the JAX package (it encodes such blocks on the host;
 the port stays on the card at any window up to 65535, with the same
-payloads). So every container this module writes is byte-identical to the
+payloads). Any other pipeline encodes and decodes block by block through
+the engine's ``compress_bytes`` and ``decompress_bytes``, as in the JAX
+package. So every container this module writes is byte-identical to the
 JAX package's, and each package reads the other's. An ``lzss,arithmetic``
-container without an aux table decodes block by block on the host, with
-the port's copies of the oracles (``formats/``): without the token
-lengths kernel C has no step count.
+container without an aux table decodes block by block through
+``decompress_bytes`` too (the native C runtime under the auto order):
+without the token lengths kernel C has no step count.
 
 The JAX package's TPU limits do not carry over: there is no 128-lane block
 padding, no VMEM batch cap, no 64 KiB payload or escaped-block gate and no
@@ -51,8 +53,6 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
-from raisin_tpu_torch.formats import arithmetic as arithmetic_host
-from raisin_tpu_torch.formats import lzss as lzss_host
 from raisin_tpu_torch.ops import arithmetic_rows, escape, huffman_blocks, lzss_decode, lzss_match, pipeline
 from raisin_tpu_torch.ops.device import d2h as _d2h
 from raisin_tpu_torch.ops.device import h2d as _h2d
@@ -95,13 +95,6 @@ CUDA_MEMORY_SHARE = 4
 # batches stay under 1 GiB.
 CPU_BATCH_BYTES = 1 << 30
 CPU_BYTES_PER_STEP = 200
-
-
-def _not_ported(algorithms: tuple[str, ...]) -> NotImplementedError:
-    return NotImplementedError(
-        f"raisin_tpu_torch runs the {', '.join(map(repr, PIPELINES))} containers so far; "
-        f"{algorithms!r} comes with ROADMAP Queue 1 item 19 (the host-only codecs and pipelines)"
-    )
 
 
 def _batch_blocks(device: torch.device, cuda_bytes_per_step: int, steps: int) -> int:
@@ -349,20 +342,22 @@ def compress_container(
 
     Same arguments as raisin_tpu.parallel.blocks.compress_container, plus
     ``device`` (:func:`resolve_device`). The pipelines of :data:`PIPELINES`
-    are ported (``("lzss", "arithmetic")`` is the default); others raise
-    NotImplementedError naming the ROADMAP item that brings them. The LZSS
-    window must lie in 1..65535 (ValueError otherwise); the other pipelines
+    run on the card (``("lzss", "arithmetic")`` is the default), with the
+    LZSS window in 1..65535 (ValueError otherwise); the other pipelines
     record ``window`` in the header as the JAX package does. The Huffman
-    pipelines raise the oracle's ValueError on empty input.
+    pipelines raise the oracle's ValueError on empty input. Any other
+    pipeline encodes block by block through the engine's ``compress_bytes``
+    (:func:`_encode_per_block`).
     """
     algorithms = tuple(algorithms)
-    if algorithms not in PIPELINES:
-        raise _not_ported(algorithms)
     if block_size <= 0:
         raise ValueError("block_size must be positive")
+    dev = resolve_device(device)
+    if algorithms not in PIPELINES:
+        with record_function("rsnb.compress"):
+            return _encode_per_block(data, algorithms, block_size, window, dev)
     if algorithms[0] == "lzss":
         lzss_match.check_window(window)
-    dev = resolve_device(device)
     with record_function("rsnb.compress"):
         sizes, body, toks = _encode_rows(data, block_size, dev, algorithms, window)
         with record_function("rsnb.enc.d2h"):
@@ -370,6 +365,18 @@ def compress_container(
             head = _header(sizes, aux, algorithms, block_size, window, len(data))
             # framed on the device: the container comes back in one copy
             return _d2h(torch.cat([_h2d(head, dev), body]))
+
+
+def _encode_per_block(data: bytes, algorithms: tuple[str, ...], block_size: int, window: int,
+                      device: torch.device) -> bytes:
+    """A pipeline without a device path, block by block through ``compress_bytes`` under the
+    preferred backend, as the JAX package encodes it (raisin_tpu/parallel/blocks.py:973-980)."""
+    from raisin_tpu_torch.engine.core import compress_bytes
+
+    with record_function("rsnb.enc.host"):
+        blocks = [data[i : i + block_size] for i in range(0, len(data), block_size)] or [b""]
+        payloads = [compress_bytes(b, algorithms, window=window, device=device) for b in blocks]
+    return assemble_container(payloads, [], algorithms, block_size, window, len(data))
 
 
 def _writes_aux(algorithms: tuple[str, ...], window: int) -> bool:
@@ -442,32 +449,33 @@ def parse_container(data: bytes):
 
 
 def decompress_container(data: bytes, device: torch.device | str | None = None) -> bytes:
-    """Block-parallel decode of an RSNB container of one of :data:`PIPELINES`."""
+    """Block-parallel decode of an RSNB container; the pipelines of :data:`PIPELINES` on the card."""
     with record_function("rsnb.decompress"):
         return _decompress_container(data, resolve_device(device))
 
 
-def _decode_lz_arith_on_host(data: bytes, pos: int, sizes) -> bytes:
-    """An lzss,arithmetic container without token lengths, block by block on the host, as the
-    JAX package decodes it (``decompress_bytes`` per payload): kernel C needs the step count."""
+def _decode_per_block(data: bytes, pos: int, sizes, algorithms: tuple[str, ...], device: torch.device) -> bytes:
+    """Block by block through ``decompress_bytes`` under the preferred backend, as the JAX package
+    decodes a pipeline without a device path and an lzss,arithmetic container without token
+    lengths (raisin_tpu/parallel/blocks.py:1084): kernel C needs the step count."""
+    from raisin_tpu_torch.engine.core import decompress_bytes
+
     with record_function("rsnb.dec.host"):
-        return b"".join(lzss_host.decompress(arithmetic_host.decompress(p)) for p in _split(data, sizes, pos))
+        return b"".join(decompress_bytes(p, algorithms, device=device) for p in _split(data, sizes, pos))
 
 
 def _decompress_container(data: bytes, device: torch.device) -> bytes:
     algorithms, block_size, orig_size, sizes, aux, window, pos = _parse_header(data)
     if orig_size == 0:
         return b""
-    if algorithms not in PIPELINES:
-        raise _not_ported(algorithms)
     tok_lens = None
     if algorithms in WITH_AUX and aux:
         tok_lens = np.array(aux[0], dtype=np.int64)
     sizes = np.array(sizes, dtype=np.int64)
     if pos + int(sizes.sum()) > len(data):
         raise ValueError("container: payloads run past the end of the data")
-    if algorithms == LZ_ARITH and tok_lens is None:
-        out = _decode_lz_arith_on_host(data, pos, sizes)
+    if algorithms not in PIPELINES or (algorithms == LZ_ARITH and tok_lens is None):
+        out = _decode_per_block(data, pos, sizes, algorithms, device)
     else:
         out_lens = np.minimum(block_size, orig_size - block_size * np.arange(len(sizes), dtype=np.int64))
         out = _decode_rows(data, pos, algorithms, sizes, out_lens, device, tok_lens)

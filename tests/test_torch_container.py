@@ -96,11 +96,14 @@ def test_framing_matches_jax():
 
 @pytest.mark.parametrize("algorithms", [("huffman", "arithmetic"), ("mcc",), ("gzip",)])
 def test_unported_pipelines_name_their_roadmap_item(algorithms):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        port_blocks.compress_container(b"abc" * 100, algorithms, block_size=512, device="cpu")
-    c = jax_blocks.compress_container(b"abc" * 100, algorithms, block_size=512)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        port_blocks.decompress_container(c, device="cpu")
+    """Pipelines without a device path (ROADMAP Queue 1 item 19) go block by block through the
+    engine, as in the JAX package: the same containers, and each package decodes the other's."""
+    data = INPUTS["text"](512)
+    want = jax_blocks.compress_container(data, algorithms, block_size=512, window=2048)
+    got = port_blocks.compress_container(data, algorithms, block_size=512, window=2048, device="cpu")
+    assert got == want
+    assert port_blocks.decompress_container(want, device="cpu") == data
+    assert jax_blocks.decompress_container(got) == data
 
 
 def test_missing_eof_raises_like_jax():
@@ -376,10 +379,12 @@ def test_lzss_container_without_aux_raises_on_a_corrupt_payload_like_jax():
     data = random_text(3000, seed=102)
     payload = arithmetic_ref.compress(lzss_ref.compress(data, 16384))
     c = port_blocks.assemble_container([payload[: len(payload) // 2]], [], LZ, 4096, 16384, len(data))
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError) as jax_err:
         jax_blocks.decompress_container(c)
-    with pytest.raises(ValueError, match="^arithmetic: stream ended without EOF symbol$"):
+    # both decode the block through decompress_bytes, so through the native C runtime
+    with pytest.raises(ValueError, match=r"^rsn_arith_decompress: malformed stream \(ended without EOF symbol\?\)$"):
         port_blocks.decompress_container(c, device="cpu")
+    assert str(jax_err.value) == "rsn_arith_decompress: malformed stream (ended without EOF symbol?)"
 
 
 def test_lzss_container_without_aux_checks_the_total_like_jax():

@@ -132,10 +132,16 @@ def test_several_devices_name_their_roadmap_item(tmp_path):
 
 @pytest.mark.parametrize("name", ["mcc", "dmc", "flate", "gzip", "lzw", "zlib", "all", "suite"])
 def test_host_only_codecs_name_their_roadmap_item(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 19"):
-        raisin_tpu_torch.compress_bytes(b"abc", [name], device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 19"):
-        raisin_tpu_torch.decompress_bytes(b"abc", ["lzss", name], device=CPU)
+    """The host-only codecs of ROADMAP Queue 1 item 19, and ``all`` and ``suite`` through them,
+    write the JAX package's bytes under the auto order, and each package decodes the other's."""
+    algorithms = ["lzss", name]
+    want = raisin_tpu.compress_bytes(DATA, algorithms)
+    got = raisin_tpu_torch.compress_bytes(DATA, algorithms, device=CPU)
+    assert got == want
+    # dmc's decoder is the reference's stub (b"Hello!"), so `all` and `suite` do not round-trip
+    back = raisin_tpu.decompress_bytes(got, algorithms)
+    assert raisin_tpu_torch.decompress_bytes(want, algorithms, device=CPU) == back
+    assert (back == DATA) == (name not in ("dmc", "all", "suite"))
 
 
 def test_unknown_codec_raises_like_jax():
@@ -148,6 +154,7 @@ def test_device_none_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = [
         lambda: raisin_tpu_torch.compress_bytes(DATA, ["arithmetic"]),  # auto: the card first
+        lambda: raisin_tpu_torch.compress_bytes(DATA, ["huffman"]),
         lambda: raisin_tpu_torch.compress_bytes(DATA, ["lzss"], backend="device"),
         lambda: raisin_tpu_torch.decompress_bytes(huffman_ref.compress(DATA), ["huffman"], backend="device"),
         lambda: raisin_tpu_torch.compress_container(DATA),
@@ -156,13 +163,15 @@ def test_device_none_without_a_card_raises(monkeypatch):
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
-    # the host backend never touches a device
-    assert raisin_tpu_torch.compress_bytes(DATA, ["arithmetic"], backend="host") == arithmetic_ref.compress(DATA)
+    # the host and native backends never touch a device, nor does auto where no device codec exists
+    for backend in ("host", "native"):
+        assert raisin_tpu_torch.compress_bytes(DATA, ["arithmetic"], backend=backend) == arithmetic_ref.compress(DATA)
+    assert raisin_tpu_torch.compress_bytes(DATA, ["mcc"]) == raisin_tpu_torch.compress_bytes(DATA, ["mcc"], "host")
 
 
 def test_raw_stream_decode_needs_no_card(monkeypatch):
-    """Raw lzss and arithmetic streams decode on the host, as in the JAX package: the auto
-    order's device codecs take them without a card."""
+    """Raw lzss and arithmetic streams decode on the host, as in the JAX package: the device
+    codecs, first in the auto order, take them with the native C runtime, without a card."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     layered = arithmetic_ref.compress(lzss_ref.compress(DATA))
     for algorithms, stream in ((["lzss", "arithmetic"], layered), (["arithmetic"], arithmetic_ref.compress(DATA)),
@@ -178,11 +187,26 @@ def test_registry_matches_jax():
 
     assert registry.ENGINES == jax_registry.ENGINES and registry.SUITES == jax_registry.SUITES
     assert registry.expand_algorithms(["all"]) == jax_registry.expand_algorithms(["all"])
-    for name in ("arithmetic", "lzss", "huffman"):
-        assert registry.available_backends(name) == ["device", "host"]
+    for name in ("arithmetic", "lzss"):
+        assert registry.available_backends(name) == ["device", "host", "native"]
         assert registry.get_codec(name, device=CPU).backend == "device"  # auto: the card first
+        assert registry.get_codec(name, "native").backend == "native"
         assert registry.get_codec(name, "host").backend == "host"
-        assert registry.get_codec(name, "native", device=CPU).backend == "device"  # absent: the auto order
+    assert registry.available_backends("huffman") == ["device", "host"]
+    assert registry.get_codec("huffman", device=CPU).backend == "device"
+    assert registry.get_codec("huffman", "native", device=CPU).backend == "device"  # absent: the auto order
+    # a window past the card's search takes the next backend of the auto order, and no other
+    assert registry.get_codec("lzss", device=CPU, window=1 << 16).backend == "native"
+    assert registry.get_codec("lzss", device=CPU, window=65535).backend == "device"
+    assert registry.get_codec("lzss", "device", device=CPU, window=1 << 16).backend == "device"
+    assert registry.get_codec("arithmetic", device=CPU, window=1 << 16).backend == "device"
+    for name in ("mcc", "dmc"):
+        assert registry.available_backends(name) == ["host", "native"]
+        assert registry.get_codec(name).backend == "native"
+    for name in ("flate", "gzip", "lzw", "zlib"):
+        assert registry.available_backends(name) == jax_registry.available_backends(name) == ["host"]
+        assert registry.get_codec(name, "device").backend == "host"
+    assert registry._FALLBACK_ORDER == ("device", "native", "host")
 
 
 def test_stream_ranges_are_recorded():
@@ -287,6 +311,21 @@ def test_copied_lzss_oracle_equals_the_original(i):
         assert port_lzss.compress(data, window) == stream
         assert port_lzss.decompress(stream) == lzss_ref.decompress(stream) == data
     assert port_lzss._go_atoi(bytearray(b"12")) == 12 and port_lzss._go_atoi(bytearray(b"x")) == 0
+
+
+@pytest.mark.parametrize("window", [1, 7, 64, 4096])
+@pytest.mark.parametrize("kind", ["random", "repetitive", "runs"])
+def test_copied_match_search_equals_the_original(kind, window):
+    """The copy finds each match length by doubling and halving it, where lzss_ref grows it a
+    byte a search: every position's (D, L) must be the original's."""
+    data = {
+        "random": random_bytes(400, seed=68),
+        "repetitive": random_text(37, seed=69) * 12,
+        "runs": b"a" * 200 + b"ab" * 60 + b"<\\>" * 30 + b"a" * 90,
+    }[kind]
+    enc = lzss_ref.encode_opening_symbols(data)
+    assert [port_lzss._match_at(enc, i, window) for i in range(len(enc))] == \
+        [lzss_ref._match_at(enc, i, window) for i in range(len(enc))]
 
 
 @pytest.mark.parametrize("name", ["arithmetic", "lzss,arithmetic"])
