@@ -13,6 +13,8 @@
     python3 chip_smoke.py --prepad   # kernel B alone: build, then time_prepad without the plain version
     python3 chip_smoke.py --paths    # phase 3 alone: the main paths and the streams, without traces
     python3 chip_smoke.py --cli      # the cli phase alone, after the default container and the wide window
+    python3 chip_smoke.py --cards    # several cards: the mesh, NCCL ranks under torchrun, the sharded step, the dry run
+    python3 chip_smoke.py --step-rank R WORLD URL NPZ [--per-card]  # one rank of a sharded step (started by a phase)
 
 Phases, each printing one line; any failure exits nonzero before the
 result line:
@@ -36,7 +38,10 @@ result line:
    several of H's spans and kernel E's
    token streams at windows 16 and 4096, while the non-ASCII edge blocks
    take the host split, are counted and equal the port's copy of the
-   oracle;
+   oracle; D also over the distance sub-ranges (0, w/2], (w/2, w] and
+   (3, w - 5] at windows w = 16 and 4096 (the sharded step's search), each
+   against its plain version with its tiles by path, and the halves' MAX
+   combine against the whole window's launch;
 3. each main path through the entry points a user calls, on a 64 MiB
    corpus (bench.make_corpus) at 64 KiB blocks: first
    ``compress_container(data, ("arithmetic",))``, then the default
@@ -79,6 +84,26 @@ result line:
    -benchmark -backend=device`` on CLI_BENCH_BYTES must print five lossless
    rows and launch D, E, G, H and I; one gzip container of CLI_HOST_BYTES
    (block by block through the engine) must round-trip;
+3c. the mesh phase: ``compress_container(data, ("lzss", "arithmetic"),
+   mesh=data_mesh())`` (every card) must equal phase 3's default container
+   and ``decompress_container(c, mesh=...)`` give the corpus back, over
+   TIMED_RUNS round trips, with launch counts from 0 and the MB/s beside
+   phase 3's; ``compress_file(..., container=True, devices="auto")`` and
+   ``raisin -container -devices=auto`` must write the same bytes, and
+   ``raisin -devices=2`` must exit 1 naming the cards there are;
+3d. the two-rank phase: two processes of
+   ``raisin_tpu_torch.parallel.multihost_worker`` on the one card (gloo:
+   NCCL refuses two ranks on one GPU) encode their block ranges of
+   TWO_RANK_BYTES of the corpus, and the rank-order container must equal
+   the one-process container; two ranks of this script (``--step-rank``)
+   run ``sharded_pipeline_step`` at model_axis=2 on STEP_B blocks of
+   STEP_S bytes, which must equal the step at model_axis=1 and
+   ``lzss_tokens`` + ``encode_blocks``, each rank launching D, E and I; a
+   world-of-1 NCCL group runs its all_reduce(MAX) on the card;
+3e. the entry phase: ``entry()``'s forward on the card (D, E and I once
+   each) against its plain version, and ``dryrun_multichip(2)`` on the
+   card (gloo), which holds every payload and block against the oracle
+   copies;
 4. each kernel at its main path's shapes, timed with CUDA events, beside
    its plain version, outputs compared exactly (the plain A and C run on
    the first PLAIN_BLOCKS blocks at full step length, the plain I on the
@@ -114,6 +139,9 @@ result line:
    Kernel F is held against its plain version at the lzss,arithmetic
    container's shape, on MAIN_BYTES of zero bytes through kernels D and E,
    and on a chain of tokens "<6,6>" that each copy the one before.
+   Kernel D is also timed over the sub-ranges (0, 2048] and (2048, 4096] at
+   the container's shape, each held against its plain version with its
+   tiles by path, and their MAX combine against the whole window.
    Kernel G is held against its plain version on each of HENCODE_INPUTS
    (both Huffman containers' rows, the huffman stream and the whole corpus
    as one block, uniform ASCII and skewed bytes in BLOCK_SIZE blocks), with
@@ -158,6 +186,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
 import re
 import subprocess
 import sys
@@ -165,6 +194,7 @@ import time
 
 import numpy as np
 
+REPO = os.path.dirname(os.path.abspath(__file__))
 MAIN_BYTES = 64 << 20  # bench.py's input size and block size
 BLOCK_SIZE = 65536
 TIMED_RUNS = 5  # timed round trips of the main path; MB/s as median, min, max
@@ -833,7 +863,8 @@ def phase_main(data: bytes, algorithms: tuple[str, ...], wrappers: dict, reset, 
     """Phase 3 for one pipeline: timed exact round trips through the entry points.
 
     Returns (launches of the first run per kernel, the last container,
-    kernel D's tiles by path in the first run, or None without kernel D).
+    kernel D's tiles by path in the first run, or None without kernel D,
+    the median encode and decode MB/s).
     """
     import torch
 
@@ -875,7 +906,7 @@ def phase_main(data: bytes, algorithms: tuple[str, ...], wrappers: dict, reset, 
         f"{f', kernel D tiles by path {tiles}' if tiles else ''}; card {card}",
         flush=True,
     )
-    return launches, c, tiles
+    return launches, c, tiles, {"encode": float(np.median(enc_mbs)), "decode": float(np.median(dec_mbs))}
 
 
 def phase_wide_window(data: bytes, dev) -> None:
@@ -1626,6 +1657,12 @@ def phase_timing_lzss(data: bytes, tok_lens: list[int], dev) -> dict:
     xe, en = escape.escape_blocks(torch.from_numpy(m).to(dev), torch.from_numpy(n).to(dev))
     esc = float(en.to(torch.int64).sum())
     L_k, D_k = lzss_match.find_matches(xe, en, WINDOW)
+    ranges = results["lzss_match"]["ranges"] = time_match_ranges(xe, en, L_k, D_k)
+    for name, r in ranges.items():
+        print(f"phase timing lzss_match over {name} on the corpus {list(xe.shape)}: kernel {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.1f} ms, tiles by path {r['tiles']}, max_abs_err 0 (whole window "
+              f"{match['corpus']['ms']:.4f} ms); the halves' MAX combine equals the whole window's output",
+              flush=True)
 
     ms_e = cuda_ms(lambda: lzss_commit.commit_tokens(xe, L_k, D_k, en), 3)
     tok_k, tl_k = lzss_commit.commit_tokens(xe, L_k, D_k, en)
@@ -2190,12 +2227,410 @@ def time_prepad(data: bytes, dev, plain: bool) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Kernel D over a distance sub-range, the mesh, the ranks and the entry points
+
+
+def match_ranges(window: int) -> tuple[tuple[int, int], ...]:
+    """Kernel D's distance sub-ranges (d_lo, d_hi] held against its plain version: both halves, one odd range."""
+    return (0, window // 2), (window // 2, window), (3, window - 5)
+
+
+def match_range(lz, xe, en, window: int, d_lo: int, d_hi: int, tag: str):
+    """Kernel D over (d_lo, d_hi] against its plain version; -> (L, D, tiles by path of the launch)."""
+    import torch
+
+    before = match_tiles()
+    L, D = lz.find_matches(xe, en, window, d_lo, d_hi)
+    after = match_tiles()
+    L_p, D_p = lz._find_matches_torch(xe, en, window, d_lo, d_hi)
+    torch.cuda.synchronize()
+    err = max_abs_err((L, L_p), (D, D_p))
+    check(err == 0, f"kernel D over ({d_lo}, {d_hi}] differs from its plain version ({tag}, max abs err {err})")
+    check(bool(((D > d_lo) | (L == 0)).all()) and bool((D <= d_hi).all()),
+          f"kernel D over ({d_lo}, {d_hi}] gave a distance outside the range ({tag})")
+    return L, D, {k: after[k] - v for k, v in before.items()}
+
+
+def halves_combine(full, lo, hi, tag: str) -> None:
+    """The two halves' MAX combine (both all-reduce rules, in one process) must give the whole window's launch."""
+    import torch
+
+    from raisin_tpu_torch.parallel.lzss_sharded import combine
+
+    L, D = combine(*lo, *hi)
+    check(torch.equal(L, full[0]) and torch.equal(D, full[1]),
+          f"the halves' MAX combine differs from the whole window's launch ({tag})")
+
+
+def phase_match_ranges(dev) -> None:
+    """Phase 2, kernel D over distance sub-ranges on the edge blocks at windows 16 and WINDOW."""
+    import torch
+
+    from raisin_tpu_torch.ops import escape, lzss_match
+
+    m, n = padded(edge_blocks())
+    xe, en = escape.escape_blocks(torch.from_numpy(m).to(dev), torch.from_numpy(n).to(dev))
+    tiles = {}
+    for window in (16, WINDOW):
+        full = lzss_match.find_matches(xe, en, window)
+        got = {}
+        for d_lo, d_hi in match_ranges(window):
+            L, D, tiles[f"({d_lo}, {d_hi}]"] = match_range(lzss_match, xe, en, window, d_lo, d_hi,
+                                                             f"edge blocks, window {window}")
+            got[d_lo, d_hi] = (L, D)
+        halves_combine(full, got[0, window // 2], got[window // 2, window], f"edge blocks, window {window}")
+    print(f"phase kernel D over distance sub-ranges vs plain: equal on {xe.shape[0]} edge blocks at windows 16 "
+          f"and {WINDOW}, ranges {[list(r) for w in (16, WINDOW) for r in match_ranges(w)]}, the halves' MAX "
+          f"combine equals the whole window's launch; tiles by path {tiles}", flush=True)
+
+
+def time_match_ranges(xe, en, L_full, D_full) -> dict:
+    """Kernel D at the container's shape over (0, WINDOW / 2] and (WINDOW / 2, WINDOW], each timed beside the
+    whole window and held against its plain version; the halves' combine equals the whole window's output."""
+    from raisin_tpu_torch.ops import lzss_match
+
+    out, halves = {}, []
+    for d_lo, d_hi in match_ranges(WINDOW)[:2]:
+        lzss_match.find_matches(xe, en, WINDOW, d_lo, d_hi)
+        ms = cuda_ms(lambda: lzss_match.find_matches(xe, en, WINDOW, d_lo, d_hi), 3)
+        before = match_tiles()
+        L, D = lzss_match.find_matches(xe, en, WINDOW, d_lo, d_hi)
+        after = match_tiles()
+        (L_p, D_p), plain = plain_ms(lambda: lzss_match._find_matches_torch(xe, en, WINDOW, d_lo, d_hi))
+        err = max_abs_err((L, L_p), (D, D_p))
+        check(err == 0, f"kernel D over ({d_lo}, {d_hi}] differs from its plain version on the corpus (err {err})")
+        out[f"({d_lo}, {d_hi}]"] = {"ms": ms, "plain_ms": plain, "max_abs_err": err,
+                                    "tiles": {k: after[k] - v for k, v in before.items()}}
+        halves.append((L, D))
+        del L_p, D_p
+    halves_combine((L_full, D_full), *halves, "the corpus at the container's shape")
+    return out
+
+
+TWO_RANK_BYTES = 4 << 20  # the two-rank container's input: the corpus's first 4 MiB
+RANK_TIMEOUT = 600  # seconds a rank process may take
+STEP_B, STEP_S = 4, BLOCK_SIZE  # the two-rank step's blocks of the corpus
+
+
+def phase_mesh(data: bytes, lz_container: bytes, lz_rates: dict, wrappers: dict, reset, card: str, dev) -> None:
+    """The mesh phase: the default container over ``data_mesh()`` (every card: one here), ``devices="auto"``
+    through compress_file and the command line, and ``-devices=2`` refused by name."""
+    import os
+    import tempfile
+
+    import torch
+
+    from raisin_tpu_torch.engine.core import compress_file
+    from raisin_tpu_torch.parallel import blocks, data_mesh
+
+    mesh = data_mesh()
+    check(mesh.shape == {"data": torch.cuda.device_count()}, f"data_mesh() is {mesh}")
+
+    def run():
+        return blocks.compress_container(data, LZ, BLOCK_SIZE, mesh=mesh, window=WINDOW)
+
+    check(blocks.decompress_container(run(), mesh=mesh) == data, "the mesh warm-up round trip differs")
+    reset()
+    t_enc, t_dec = [], []
+    for rep in range(TIMED_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c = run()
+        t_enc.append(time.perf_counter() - t0)
+        check(c == lz_container, f"the container over {mesh} differs from phase 3's default container")
+        t0 = time.perf_counter()
+        back = blocks.decompress_container(c, mesh=mesh)
+        t_dec.append(time.perf_counter() - t0)
+        check(back == data, f"the container over {mesh} did not round-trip")
+        if rep == 0:
+            launches = {name: fn.launches for name, fn in wrappers.items()}
+            check(all(launches[k] > 0 for k in wrappers), f"the mesh path did not launch every kernel: {launches}")
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "corpus")
+        with open(src, "wb") as f:
+            f.write(data)
+        compress_file(list(LZ), src, src + ".file.rsn", quiet=True, container=True, block_size=BLOCK_SIZE,
+                      devices="auto", window=WINDOW)
+        sizes = [f"-blocksize={BLOCK_SIZE}", f"-window={WINDOW}"]
+        rc, _ = run_cli(["raisin", "-compress", "-container", "-devices=auto", *sizes, f"-out={src}.cli.rsn", src])
+        check(rc == 0, f"raisin -container -devices=auto exited {rc}")
+        for tag in ("file", "cli"):
+            with open(f"{src}.{tag}.rsn", "rb") as f:
+                check(f.read() == lz_container, f"devices=auto through {tag} wrote other bytes than phase 3")
+        rc, out = run_cli(["raisin", "-compress", "-container", "-devices=2", *sizes, f"-out={src}.two.rsn", src])
+        want = f"devices=2: more than the {torch.cuda.device_count()} visible card"
+        check(rc == 1 and want in out and not os.path.exists(f"{src}.two.rsn"),
+              f"raisin -devices=2 on {torch.cuda.device_count()} card(s): exit {rc}, {out!r}")
+    mb = len(data) / 1e6
+    enc, dec = sorted(mb / t for t in t_enc), sorted(mb / t for t in t_dec)
+    print(f"phase mesh: compress_container(..., mesh=data_mesh()) over {mesh.shape} equal to phase 3's default "
+          f"container and round trip exact {TIMED_RUNS} times; encode MB/s median {np.median(enc):.3f} (min "
+          f"{enc[0]:.3f}, max {enc[-1]:.3f}), decode MB/s median {np.median(dec):.3f} (min {dec[0]:.3f}, max "
+          f"{dec[-1]:.3f}), beside phase 3's {lz_rates['encode']:.3f} and {lz_rates['decode']:.3f}; launches of the "
+          f"first run {launches}; devices=auto through compress_file and raisin -container wrote the same bytes; "
+          f"raisin -devices=2 exited 1: {out.strip()!r}; card {card}", flush=True)
+
+
+def step_rank(rank: int, world: int, init: str, path: str, per_card: bool) -> None:
+    """One rank of the sharded step at model_axis=2: with ``per_card`` on card ``rank`` under NCCL,
+    else on cuda:0 under gloo; runs the step on its 'data' shard of the blocks at ``path`` and
+    writes its outputs and its kernels' launches beside them."""
+    import torch
+
+    from raisin_tpu_torch.ops import arithmetic_rows, lzss_commit, lzss_match
+    from raisin_tpu_torch.parallel import multihost
+    from raisin_tpu_torch.parallel.lzss_sharded import sharded_pipeline_step
+
+    # several ranks on one card take gloo: NCCL refuses two ranks on one GPU
+    dev = multihost.initialize(init, world, rank, backend=None if per_card else "gloo",
+                               device=f"cuda:{rank}" if per_card else "cuda:0")
+    try:
+        mesh = multihost.global_data_mesh(model_axis=2)
+        check(mesh.shape == {"data": world // 2, "model": 2}, f"the {world}-rank mesh is {mesh}")
+        z = np.load(path)
+        rows = len(z["lengths"]) // mesh.shape["data"]
+        mine = slice(rank // 2 * rows, (rank // 2 + 1) * rows)
+        x, n = torch.from_numpy(z["x"][mine]).to(dev), torch.from_numpy(z["lengths"][mine]).to(dev)
+        step = sharded_pipeline_step(mesh, x.shape[1], WINDOW)
+        wrappers = (lzss_match.find_matches, lzss_commit.commit_tokens, arithmetic_rows.encode_events)
+        for fn in wrappers:
+            fn.launches = 0
+        lzss_match.find_matches.chain_tiles = lzss_match.find_matches.sweep_tiles = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok, tok_len, bits, bit_len = step(x, n)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        np.savez(f"{path}.rank{rank}.npz", tok=tok.cpu().numpy(), tok_len=tok_len.cpu().numpy(),
+                 bits=bits.cpu().numpy(), bit_len=bit_len.cpu().numpy())
+        print(json.dumps({"rank": rank, "device": str(dev), "backend": torch.distributed.get_backend(),
+                          "seconds": seconds, "launches": [fn.launches for fn in wrappers],
+                          "tiles": match_tiles()}), flush=True)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def sharded_step_ranks(xe, en, world: int, per_card: bool, tmp: str) -> tuple[list[dict], float]:
+    """Run ``world`` ranks of :func:`step_rank` on the escaped blocks (xe, en); each rank's outputs must
+    equal the one-process step's rows of its shard and lzss_tokens + encode_blocks'. -> (reports, seconds)."""
+    import os
+
+    import torch
+    import torch.nn.functional as F
+
+    from raisin_tpu_torch.entry import rendezvous, run_ranks
+    from raisin_tpu_torch.ops import arithmetic_scan, pipeline
+    from raisin_tpu_torch.parallel import data_mesh
+    from raisin_tpu_torch.parallel.lzss_sharded import sharded_pipeline_step
+
+    path = os.path.join(tmp, f"step{world}.npz")
+    np.savez(path, x=xe.cpu().numpy(), lengths=en.cpu().numpy())
+    t0 = time.perf_counter()
+    with rendezvous() as url:
+        logs = run_ranks(lambda r: [sys.executable, os.path.join(REPO, "chip_smoke.py"), "--step-rank", str(r),
+                                    str(world), url, path] + (["--per-card"] if per_card else []), world,
+                         timeout=RANK_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    reports = [json.loads(log.strip().splitlines()[-1]) for log in logs]
+    S = xe.shape[1]
+    one = sharded_pipeline_step(data_mesh(1), S, WINDOW)(xe, en)
+    tok, tok_len = pipeline.lzss_tokens(xe, en, WINDOW)
+    j = torch.arange(S + 8, dtype=torch.int32, device=xe.device)
+    syms = torch.where(j[None, :] < tok_len[:, None], F.pad(tok, (0, 8)).to(torch.int32), arithmetic_scan.EOF)
+    ref = (tok, tok_len, *arithmetic_scan.encode_blocks(syms.to(torch.int32), tok_len))
+    rows = xe.shape[0] // (world // 2)
+    for want, what in ((one, "the step at model_axis=1"), (ref, "lzss_tokens + encode_blocks")):
+        want = [t.cpu().numpy() for t in want]
+        for r in range(world):
+            g = np.load(f"{path}.rank{r}.npz")
+            mine = slice(r // 2 * rows, (r // 2 + 1) * rows)
+            check(all(np.array_equal(g[k], w[mine]) for k, w in zip(("tok", "tok_len", "bits", "bit_len"), want)),
+                  f"rank {r} of {world}'s step at model_axis=2 differs from {what}")
+    for rep in reports:
+        check(all(k > 0 for k in rep["launches"]), f"a rank of the step did not launch D, E and I: {rep}")
+    return reports, seconds
+
+
+def phase_two_ranks(data: bytes, card: str, dev) -> dict:
+    """Two processes on the one card: the container over their block ranges and the sharded step at
+    model_axis=2, each against the one-process result; then a world-of-1 NCCL group's all_reduce."""
+    import os
+    import tempfile
+
+    import torch
+
+    from raisin_tpu_torch.entry import rendezvous, run_ranks
+    from raisin_tpu_torch.ops import escape, lzss_match
+    from raisin_tpu_torch.parallel import blocks, multihost
+    from raisin_tpu_torch.parallel.multihost_worker import load_segments
+
+    part = data[:TWO_RANK_BYTES]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "in.bin")
+        with open(src, "wb") as f:
+            f.write(part)
+        t0 = time.perf_counter()
+        with rendezvous() as url:
+            run_ranks(lambda r: [sys.executable, "-m", "raisin_tpu_torch.parallel.multihost_worker", src, tmp,
+                                 "--rank", str(r), "--world", "2", "--coordinator", url, "--device", "cuda:0",
+                                 "--backend", "gloo", "--block-size", str(BLOCK_SIZE), "--window", str(WINDOW)], 2,
+                      timeout=RANK_TIMEOUT)
+        out["container_s"] = time.perf_counter() - t0
+        records, payloads, aux = load_segments(tmp, 2)
+        check(records[0]["sum"] == records[1]["sum"] == [10.0, 12.0, 14.0, 16.0],
+              f"the all_reduce(SUM) over two ranks gave {records[0]['sum']}, {records[1]['sum']}")
+        ranges = [r["range"] for r in records]
+        nblocks = records[0]["nblocks"]
+        check(ranges[0][0] == 0 and ranges[0][1] == ranges[1][0] and ranges[1][1] == nblocks,
+              f"the ranks' block ranges {ranges} do not cover {nblocks} blocks in order")
+        joined = blocks.assemble_container(payloads, [aux], LZ, BLOCK_SIZE, WINDOW, len(part))
+        single = blocks.compress_container(part, LZ, BLOCK_SIZE, window=WINDOW, device=dev)
+        check(joined == single, "the two ranks' rank-order container differs from the one-process container")
+
+        m, n = padded([part[i * STEP_S : (i + 1) * STEP_S] for i in range(STEP_B)])
+        xe, en = escape.escape_blocks(torch.from_numpy(m).to(dev), torch.from_numpy(n).to(dev))
+        reports, out["step_s"] = sharded_step_ranks(xe, en, 2, False, tmp)
+
+        # a world-of-1 NCCL group on the card: its all_reduce(MAX) of the step's L and D
+        multihost.initialize("file://" + os.path.join(tmp, "nccl-store"), 1, 0, device=dev)
+        try:
+            check(torch.distributed.get_backend() == "nccl", "the one-card group is not NCCL")
+            L = lzss_match.find_matches(xe, en, WINDOW)[0]
+            red = L.clone()
+            torch.distributed.all_reduce(red, torch.distributed.ReduceOp.MAX)
+            torch.cuda.synchronize()
+            check(torch.equal(red, L), "NCCL's all_reduce(MAX) over one rank changed L")
+        finally:
+            torch.distributed.destroy_process_group()
+    out.update(ranks=[{k: rep[k] for k in ("seconds", "launches", "tiles")} for rep in reports],
+               container_bytes=len(part), step_shape=list(xe.shape))
+    print(f"phase two ranks (gloo, both on cuda:0): the rank-order container of {len(part)} B in {nblocks} blocks "
+          f"(ranges {ranges}) equals the one-process container, all_reduce(SUM) gave {records[0]['sum']}, "
+          f"{out['container_s']:.1f} s with the processes' start; the step at model_axis=2 on {STEP_B} blocks of "
+          f"{STEP_S} B (escaped {list(xe.shape)}) equals the step at model_axis=1 and lzss_tokens + encode_blocks, "
+          f"{out['step_s']:.1f} s with the start; per rank (step seconds, launches of D, E, I, D's tiles by path) "
+          f"{out['ranks']}; a world-of-1 NCCL group's all_reduce(MAX) ran on the card; card {card}", flush=True)
+    return out
+
+
+def phase_cards(data: bytes, card: str) -> dict:
+    """Every card of the machine (``--cards``, two or more): the default container over data_mesh(k) for
+    k = 1, 2 and every card, in turns, each equal to the one-card bytes, with its MB/s; the worker module
+    on every card under torchrun (env://, NCCL, cuda:LOCAL_RANK), whose rank-order container must equal
+    them; the sharded step at model_axis=2 on every card under NCCL against the one-process step; and
+    ``dryrun_multichip`` on every card, a card a rank under NCCL."""
+    import os
+    import tempfile
+
+    import torch
+
+    from raisin_tpu_torch import entry
+    from raisin_tpu_torch.ops import escape
+    from raisin_tpu_torch.parallel import blocks, data_mesh
+    from raisin_tpu_torch.parallel.multihost_worker import load_segments
+
+    cards = torch.cuda.device_count()
+    check(cards >= 2 and cards % 2 == 0, f"--cards needs an even number of cards, not {cards}")
+    mb = len(data) / 1e6
+    sizes = sorted({1, 2, cards})
+    rates, ref = {k: {"encode": [], "decode": []} for k in sizes}, None
+    for k in sizes * 2:  # in turns: 1, 2, every card, then again
+        mesh = data_mesh(k)
+        for rep in range(TIMED_RUNS + 1):  # the first round trip warms the cards up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            c = blocks.compress_container(data, LZ, BLOCK_SIZE, mesh=mesh, window=WINDOW)
+            t_enc = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = blocks.decompress_container(c, mesh=mesh)
+            t_dec = time.perf_counter() - t0
+            ref = ref or c
+            check(c == ref and back == data, f"the container over {mesh.shape} differs or did not round-trip")
+            if rep:
+                rates[k]["encode"].append(mb / t_enc)
+                rates[k]["decode"].append(mb / t_dec)
+    out = {"mesh": {k: {d: {"median": float(np.median(v)), "min": min(v), "max": max(v)} for d, v in r.items()}
+                    for k, r in rates.items()}}
+    for k in (1, cards):  # one traced round trip: host ms per range (summed over the threads), device ms by kernel
+        mesh = data_mesh(k)
+        out[f"trace {k}"] = trace_breakdown(
+            lambda: check(blocks.decompress_container(blocks.compress_container(
+                data, LZ, BLOCK_SIZE, mesh=mesh, window=WINDOW), mesh=mesh) == data, "traced round trip differs"),
+            "rsnb.", ("rsnb.compress", "rsnb.decompress"))
+        print(f"phase cards, trace over {k} card(s): {json.dumps(out[f'trace {k}'])}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "in.bin")
+        with open(src, "wb") as f:
+            f.write(data)
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(cards),
+                              "--standalone", "-m", "raisin_tpu_torch.parallel.multihost_worker",
+                              src, tmp, "--block-size", str(BLOCK_SIZE), "--window", str(WINDOW)],
+                             capture_output=True, text=True, timeout=RANK_TIMEOUT,
+                             env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO)
+        out["torchrun_s"] = time.perf_counter() - t0
+        check(run.returncode == 0, f"torchrun of {cards} workers exited {run.returncode}:\n{run.stderr[-3000:]}")
+        records, payloads, aux = load_segments(tmp, cards)
+        out["workers"] = [{"range": r["range"], "device": r["device"]} for r in records]
+        check(sorted(r["device"] for r in records) == [f"cuda:{i}" for i in range(cards)],
+              f"the workers' devices: {out['workers']}")
+        total = [sum(10 * r + i for r in range(cards)) for i in range(4)]
+        check(all(r["sum"] == total for r in records), f"all_reduce(SUM) over {cards} ranks: {records[0]['sum']}")
+        joined = blocks.assemble_container(payloads, [aux], LZ, BLOCK_SIZE, WINDOW, len(data))
+        check(joined == ref, f"the {cards} NCCL ranks' rank-order container differs from one card's")
+
+        m, n = padded([data[i * STEP_S : (i + 1) * STEP_S] for i in range(STEP_B * cards)])
+        xe, en = escape.escape_blocks(torch.from_numpy(m).to("cuda:0"), torch.from_numpy(n).to("cuda:0"))
+        reports, out["step_s"] = sharded_step_ranks(xe, en, cards, True, tmp)
+        out["step_ranks"] = reports
+    t0 = time.perf_counter()
+    entry.dryrun_multichip(cards)  # a card a rank, NCCL
+    out["dryrun_s"] = time.perf_counter() - t0
+    print(f"phase cards ({cards} x {card}): the container over data_mesh(k) equals one card's, MB/s "
+          f"{json.dumps(out['mesh'])}; {cards} workers under torchrun (NCCL) wrote it in rank order "
+          f"({out['torchrun_s']:.1f} s with the start); the step at model_axis=2 on {STEP_B * cards} blocks over "
+          f"{cards} NCCL ranks equals the one-process step ({out['step_s']:.1f} s with the start): "
+          f"{json.dumps(reports)}; dryrun_multichip({cards}) on a card a rank (NCCL) in {out['dryrun_s']:.1f} s "
+          f"with the start", flush=True)
+    return out
+
+
+def phase_entry(card: str, dev) -> None:
+    """entry()'s forward on the card against its plain version, then dryrun_multichip(2) on the card."""
+    import torch
+
+    from raisin_tpu_torch import entry
+    from raisin_tpu_torch.ops import arithmetic_rows, lzss_commit, lzss_match
+
+    wrappers = (lzss_match.find_matches, lzss_commit.commit_tokens, arithmetic_rows.encode_events)
+    forward, (x, n) = entry.entry(dev)
+    before = [fn.launches for fn in wrappers]
+    bits, bit_len = forward(x, n)
+    torch.cuda.synchronize()
+    launched = [fn.launches - b for fn, b in zip(wrappers, before)]
+    check(launched == [1, 1, 1], f"entry()'s forward launched D, E, I {launched} times")
+    plain_forward, (xc, nc) = entry.entry("cpu")
+    bits_p, bit_len_p = plain_forward(xc, nc)
+    err = max_abs_err((bits.cpu(), bits_p), (bit_len.cpu(), bit_len_p))
+    check(err == 0, f"entry()'s forward on the card differs from its plain version (err {err})")
+    t0 = time.perf_counter()
+    entry.dryrun_multichip(2, backend="gloo", device=f"cuda:{dev.index or 0}")
+    print(f"phase entry: entry()'s forward on {tuple(x.shape)} launched D, E, I once each and equals its plain "
+          f"version (max_abs_err 0, bit lengths {bit_len.tolist()}); dryrun_multichip(2) on the card (gloo) in "
+          f"{time.perf_counter() - t0:.1f} s with the processes' start; card {card}", flush=True)
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--step-rank"]:  # one rank of sharded_step_ranks, started by it
+        step_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5], sys.argv[6:] == ["--per-card"])
+        return 0
 
     import bench
     from raisin_tpu_torch.ops import _build, huffman_blocks, huffman_rows, lzss_commit, lzss_decode, lzss_match
@@ -2266,6 +2701,9 @@ def main() -> int:
         walk = time_walk(bench.make_corpus(MAIN_BYTES), dev)
         print(json.dumps({"card": smi, "window": WINDOW, "lzss_decode": walk}))
         return 0
+    if sys.argv[1:] == ["--cards"]:  # every card of the machine: the mesh, NCCL ranks, the step, the dry run
+        phase_cards(bench.make_corpus(MAIN_BYTES), smi)
+        return 0
     if sys.argv[1:] == ["--cli"]:  # the cli phase alone, after phase 3's default container
         data = bench.make_corpus(MAIN_BYTES)
         c = blocks.compress_container(data, LZ, block_size=BLOCK_SIZE, window=WINDOW, device=dev)
@@ -2283,20 +2721,21 @@ def main() -> int:
     # phase 2: each kernel against its plain version on edge cases
     phase_kernels_vs_plain(ar, dev)
     phase_lzss_vs_plain(dev)
+    phase_match_ranges(dev)
     phase_huffman_vs_plain(dev)
 
     # phase 3: the main paths through the entry points a user calls
     data = bench.make_corpus(MAIN_BYTES)
-    launches_arith, c, _ = phase_main(data, ("arithmetic",), arith, reset, card, dev)
+    launches_arith, c, _, _ = phase_main(data, ("arithmetic",), arith, reset, card, dev)
     _, _, _, payloads, _, _ = blocks.parse_container(c)
     check_oracle_blocks(data, payloads)
     traces = {"arithmetic": trace_container(data, dev, ("arithmetic",))}
-    launches, lz_container, tiles = phase_main(data, LZ, {**arith, **lz}, reset, card, dev)
+    launches, lz_container, tiles, lz_rates = phase_main(data, LZ, {**arith, **lz}, reset, card, dev)
     _, _, _, lz_payloads, aux, _ = blocks.parse_container(lz_container)
     check_oracle_blocks_lzss(data, lz_payloads, aux[0])
     traces["lzss,arithmetic"] = trace_container(data, dev, LZ)
     huffman_blocks.reset_host_split()
-    launches_huff, c, _ = phase_main(data, LZ_HUFF, {**lz, **huff}, reset, card, dev)
+    launches_huff, c, _, _ = phase_main(data, LZ_HUFF, {**lz, **huff}, reset, card, dev)
     split = dict(huffman_blocks.host_split)
     check(split == {"encode": 0, "decode": 0}, f"lzss,huffman blocks took the host split: {split}")
     _, _, _, lh_payloads, lh_aux, _ = blocks.parse_container(c)
@@ -2316,6 +2755,9 @@ def main() -> int:
     phase_wide_window(data, dev)
     launches_stream = phase_stream(data[:STREAM_BYTES], every, reset, card, dev)
     phase_cli(data, lz_container, every, reset, card, dev)
+    phase_mesh(data, lz_container, lz_rates, {**arith, **lz}, reset, card, dev)
+    phase_two_ranks(data, card, dev)
+    phase_entry(card, dev)
 
     # phase 4: kernels at the main paths' shapes, beside their plain versions
     passes = events_passes(data, dev)

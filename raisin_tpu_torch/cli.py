@@ -23,9 +23,9 @@ Flags:
                            block-parallel scale path; decompress
                            auto-detects the RSNB magic)
     -blocksize=N           container block size in bytes (default 65536)
-    -devices=N|auto        the number of cards; the port runs on one so far,
-                           and any other value exits 1 (multi-GPU is
-                           ROADMAP Queue 1 item 13)
+    -devices=N|auto        container mode: shard blocks over a 'data' mesh
+                           of N (or all) cards; more than the machine has
+                           exits 1
     -window=N              LZSS search window (default 4096; parity with
                            lz.NewWriterLevel, lzss.go:42). In container
                            mode this sets the speed/ratio tradeoff
@@ -52,6 +52,7 @@ from raisin_tpu_torch.engine.core import (
     decompress_file,
     decompress_files,
 )
+from raisin_tpu_torch.parallel.mesh import DeviceCountError
 
 COMMANDS = ["compress", "decompress", "benchmark", "help"]
 
@@ -195,7 +196,7 @@ def _run_command(command: str, flags: dict, positional: list[str], application: 
                 )
         except KeyError as exc:
             return _error(f"{exc.args[0]}\nValid algorithms: {', '.join(registry.ENGINES)}\n")
-        except NotImplementedError as exc:  # -devices other than 1 (ROADMAP Queue 1 item 13)
+        except DeviceCountError as exc:
             return _error(f"{exc}\n")
         if delete_after:
             for f in files:
@@ -219,7 +220,7 @@ def _run_command(command: str, flags: dict, positional: list[str], application: 
                 decompress_file(algorithms, files[0], out, devices=flags.get("devices"), device=device)
         except KeyError as exc:
             return _error(f"{exc.args[0]}\nValid algorithms: {', '.join(registry.ENGINES)}\n")
-        except NotImplementedError as exc:  # -devices other than 1 (ROADMAP Queue 1 item 13)
+        except DeviceCountError as exc:
             return _error(f"{exc}\n")
         except ValueError as exc:
             return _error(f"decompression failed: {exc}\n")

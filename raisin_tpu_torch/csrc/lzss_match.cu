@@ -9,6 +9,16 @@
 // largest distance (the leftmost occurrence). Positions with no match, and
 // positions at or past n, get (0, 0).
 //
+// The search may be restricted to the distances d_lo < d <= d_hi, the
+// JAX scan's sub-range (d0, d0 + wl] that one rank of the tensor-parallel
+// match search takes (parallel/lzss_sharded.py); the full window is
+// d_lo = 0, d_hi = window, and "window" below means d_hi. Where the range
+// enters: each tile's span reaches d_hi back; the chain walk passes over
+// candidates at d <= d_lo on their link alone (each still a step of the
+// budget); the one-byte rule looks for the earliest occurrence at
+// distances in the range only; and the sweep runs the recurrence over
+// d_lo + 1 .. d_hi.
+//
 // What bounds it. Trying every distance at every position is n * window
 // capped-run updates (2.7e11 for 1024 blocks of 64 KiB at window 4096),
 // while on text a position shares its first two bytes with only ~45
@@ -190,28 +200,29 @@ __device__ __forceinline__ void sweep_segment(const uint8_t* xs, int hi, int lo,
 }
 
 // The sweep path: keys of span positions [keep_lo, keep_hi) over distances
-// 1..maxd, the runs started at span position top (all from this CTA).
-__device__ void sweep_tile(const uint8_t* xs, int top, int keep_lo, int keep_hi, int maxd, int32_t* Lrow,
-                           int32_t* Drow, uint32_t* best) {
+// d_lo + 1 .. maxd, the runs started at span position top (all from this CTA).
+__device__ void sweep_tile(const uint8_t* xs, int top, int keep_lo, int keep_hi, int d_lo, int maxd,
+                           int32_t* Lrow, int32_t* Drow, uint32_t* best) {
     const int tid = threadIdx.x;
     const int nthreads = blockDim.x;
     const int warp = tid >> 5;
     const int lane = tid & 31;
     const int per_pass = (nthreads >> 5) * KG * 32;
-    if (maxd <= 0) {  // uniform across the CTA
+    if (maxd <= d_lo) {  // uniform across the CTA: no distance of the range fits
         for (int i = keep_lo + tid; i < keep_hi; i += nthreads) {
             Lrow[i] = 0;
             Drow[i] = 0;
         }
         return;
     }
-    const int passes = (maxd + per_pass - 1) / per_pass;
+    const int passes = (maxd - d_lo + per_pass - 1) / per_pass;
     for (int pass = 0; pass < passes; ++pass) {
         const bool last = pass == passes - 1;
+        const int d0 = d_lo + pass * per_pass;  // the pass's distances are d0 + 1 .. d0 + per_pass
         // lane l of warp w owns the KG consecutive distances dbase .. dbase + KG - 1
-        const int dbase = pass * per_pass + (warp * 32 + lane) * KG + 1;
-        const int wtop = pass * per_pass + (warp + 1) * 32 * KG;  // the warp's largest distance
-        const bool idle = pass * per_pass + warp * 32 * KG + 1 > maxd;
+        const int dbase = d0 + (warp * 32 + lane) * KG + 1;
+        const int wtop = d0 + (warp + 1) * 32 * KG;  // the warp's largest distance
+        const bool idle = d0 + warp * 32 * KG + 1 > maxd;
         uint32_t cap[KG];  // the run cap: d, or 0 for distances past maxd (never match)
         uint32_t c[KG];
 #pragma unroll
@@ -256,11 +267,12 @@ __device__ __forceinline__ int run_length(const uint8_t* xs, int a, int b, int l
 }
 
 // The chain path over span positions [keep_lo, keep_hi) (Lrow, Drow in span
-// coordinates; i = li + s0 in the block); the first m span positions have a
-// 2-gram (i + 1 < n). Returns false when a position passed BUDGET steps
-// (the CTA then sweeps; what was written here is overwritten).
+// coordinates; i = li + s0 in the block) and distances (d_lo, d_hi]; the
+// first m span positions have a 2-gram (i + 1 < n). Returns false when a
+// position passed BUDGET steps (the CTA then sweeps; what was written here
+// is overwritten).
 __device__ bool chain_tile(const uint8_t* xs, uint32_t* links, uint16_t* head, volatile int* flag, int m,
-                           int keep_lo, int keep_hi, int s0, int n, int window, int32_t* Lrow,
+                           int keep_lo, int keep_hi, int s0, int n, int d_lo, int d_hi, int32_t* Lrow,
                            int32_t* Drow) {
     const int tid = threadIdx.x;
     const int nthreads = blockDim.x;
@@ -310,7 +322,7 @@ __device__ bool chain_tile(const uint8_t* xs, uint32_t* links, uint16_t* head, v
 
     for (int li = keep_lo + tid; li < keep_hi; li += nthreads) {
         if (*flag) break;
-        const int maxd = min(window, li + s0);
+        const int maxd = min(d_hi, li + s0);
         const int room = n - s0 - li;  // bytes from i to the block's end
         int best = 1, best_d = 0, steps = 0;  // runs of 2 or more count here
         if (li < m) {
@@ -323,6 +335,8 @@ __device__ bool chain_tile(const uint8_t* xs, uint32_t* links, uint16_t* head, v
             // too), byte best as well means a longer run is. A longer run is
             // measured at once; a tie, which moves D to the larger d, is only
             // remembered, and the farthest one is checked at the end.
+            // Candidates at d <= d_lo lie outside the range: passed over
+            // (the re-walk below only looks past best_d > d_lo).
             const uint32_t own = links[li] >> 16;
             const int jmin = li - maxd;  // NIL lies above li, so one compare ends the walk
             int off = 0, tie = NIL;
@@ -331,7 +345,7 @@ __device__ bool chain_tile(const uint8_t* xs, uint32_t* links, uint16_t* head, v
                 ++steps;
                 const uint32_t entry = links[j];
                 const int d = li - j;
-                if (best < 4 || entry >> 16 == own) {
+                if (d > d_lo && (best < 4 || entry >> 16 == own)) {
                     const uint32_t diff = load4(xs, j + off) ^ ref;
                     if ((diff & tie_mask) == 0u && d >= best) {
                         if ((diff & more_mask) == 0u && d > best && room > best) {
@@ -375,10 +389,10 @@ __device__ bool chain_tile(const uint8_t* xs, uint32_t* links, uint16_t* head, v
                 break;
             }
         }
-        if (best < 2) {  // no 2-gram match: the earliest occurrence of the byte, if any
+        if (best < 2) {  // no 2-gram match: the earliest occurrence of the byte in the range, if any
             best = best_d = 0;
-            if (maxd > 0) {
-                const int k = first_occurrence(xs, li - maxd, li, xs[li]);
+            if (maxd > d_lo) {
+                const int k = first_occurrence(xs, li - maxd, li - d_lo, xs[li]);
                 if (k >= 0) {
                     best = 1;
                     best_d = li - k;
@@ -395,8 +409,8 @@ __device__ bool chain_tile(const uint8_t* xs, uint32_t* links, uint16_t* head, v
 template <bool kSmemSpan>
 __global__ void __launch_bounds__(THREADS, 2)  // two CTAs an SM: at most 32 registers
 lzss_match_kernel(const uint8_t* __restrict__ x, const int32_t* __restrict__ lengths, int32_t* __restrict__ L,
-                  int32_t* __restrict__ D, int* __restrict__ counts, int S, int window, int tile_pos, int tiles,
-                  bool chain, int span_bytes, int prev_bytes) {
+                  int32_t* __restrict__ D, int* __restrict__ counts, int S, int d_lo, int d_hi, int tile_pos,
+                  int tiles, bool chain, int span_bytes, int prev_bytes) {
     extern __shared__ __align__(16) uint8_t smem[];
     const int b = blockIdx.x / tiles;
     const int p = (blockIdx.x % tiles) * tile_pos;
@@ -414,8 +428,8 @@ lzss_match_kernel(const uint8_t* __restrict__ x, const int32_t* __restrict__ len
     }
     const int pe = min(p_end, n);
     if (p >= pe) return;  // uniform: no position below n
-    const int s0 = max(0, p - window);
-    const int e = min(n, p + tile_pos + window);  // no capped run of [p, pe) reaches past e
+    const int s0 = max(0, p - d_hi);
+    const int e = min(n, p + tile_pos + d_hi);  // no capped run of [p, pe) reaches past e
     uint8_t* region = smem + (kSmemSpan ? span_bytes : 0);
     uint32_t* best = reinterpret_cast<uint32_t*>(region);
     uint32_t* links = reinterpret_cast<uint32_t*>(region);
@@ -435,8 +449,9 @@ lzss_match_kernel(const uint8_t* __restrict__ x, const int32_t* __restrict__ len
     Drow += s0;
     const int keep_lo = p - s0, keep_hi = pe - s0;
     const bool chained =
-        chain && chain_tile(xs, links, head, flag, min(pe, n - 1) - s0, keep_lo, keep_hi, s0, n, window, Lrow, Drow);
-    if (!chained) sweep_tile(xs, e - s0, keep_lo, keep_hi, min(window, pe - 1), Lrow, Drow, best);
+        chain &&
+        chain_tile(xs, links, head, flag, min(pe, n - 1) - s0, keep_lo, keep_hi, s0, n, d_lo, d_hi, Lrow, Drow);
+    if (!chained) sweep_tile(xs, e - s0, keep_lo, keep_hi, d_lo, min(d_hi, pe - 1), Lrow, Drow, best);
     if (tid == 0) atomicAdd(&counts[chained ? 0 : 1], 1);
 }
 
@@ -444,17 +459,19 @@ size_t round16(size_t v) { return (v + 15) / 16 * 16; }
 
 }  // namespace
 
+// Distances (d_lo, d_hi], 0 <= d_lo < d_hi; the whole window is d_lo = 0, d_hi = window.
 extern "C" int rsn_lzss_match(const void* x, const void* lengths, void* L, void* D, void* counts, int B, int S,
-                              int window, void* stream) {
-    const bool chain = window <= CHAIN_MAX_WINDOW;
+                              int d_lo, int d_hi, void* stream) {
+    if (d_lo < 0 || d_hi <= d_lo) return (int)cudaErrorInvalidValue;
+    const bool chain = d_hi <= CHAIN_MAX_WINDOW;
     const int tile_pos = chain ? TILE_POS : S;
     const int tiles = (S + tile_pos - 1) / tile_pos;
     if ((long long)B * tiles > 0x7FFFFFFFLL) return (int)cudaErrorInvalidConfiguration;
-    const long long span = chain ? (long long)TILE_POS + 2LL * window : (long long)S;
+    const long long span = chain ? (long long)TILE_POS + 2LL * d_hi : (long long)S;
     const size_t span_bytes = round16((size_t)(span < S ? span : S) + PAD);
     size_t prev_bytes = 0, region = TILE * sizeof(uint32_t);
     if (chain) {
-        const long long linked = (long long)TILE_POS + window;  // positions that carry a link
+        const long long linked = (long long)TILE_POS + d_hi;  // positions that carry a link
         prev_bytes = round16(4 * (size_t)(linked < S ? linked : S));
         const size_t chain_bytes = prev_bytes + 2 * BUILDERS * HASH_SIZE + 16;  // links, heads, the flag
         region = chain_bytes > region ? chain_bytes : region;
@@ -471,7 +488,7 @@ extern "C" int rsn_lzss_match(const void* x, const void* lengths, void* L, void*
                                    cudaSharedmemCarveoutMaxShared);
         if (err != cudaSuccess) return (int)err;
         lzss_match_kernel<true><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-            (const uint8_t*)x, (const int32_t*)lengths, (int32_t*)L, (int32_t*)D, (int*)counts, S, window,
+            (const uint8_t*)x, (const int32_t*)lengths, (int32_t*)L, (int32_t*)D, (int*)counts, S, d_lo, d_hi,
             tile_pos, tiles, chain, (int)span_bytes, (int)prev_bytes);
     } else {
         err = cudaFuncSetAttribute(lzss_match_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -480,7 +497,7 @@ extern "C" int rsn_lzss_match(const void* x, const void* lengths, void* L, void*
                                    cudaSharedmemCarveoutMaxShared);
         if (err != cudaSuccess) return (int)err;
         lzss_match_kernel<false><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-            (const uint8_t*)x, (const int32_t*)lengths, (int32_t*)L, (int32_t*)D, (int*)counts, S, window,
+            (const uint8_t*)x, (const int32_t*)lengths, (int32_t*)L, (int32_t*)D, (int*)counts, S, d_lo, d_hi,
             tile_pos, tiles, chain, (int)span_bytes, (int)prev_bytes);
     }
     return (int)cudaGetLastError();

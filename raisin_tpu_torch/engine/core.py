@@ -9,10 +9,10 @@ out-of-band (cmd/cli.go:99,133).
 The functions take the JAX package's arguments plus ``device``: it goes to
 every ``device`` codec and to the container (None: the CUDA card, and
 RuntimeError without one; ``"cpu"`` runs the kernels' plain versions).
-``container=True`` writes the RSNB block container of ``parallel/blocks``.
-``devices`` other than None or 1 raises NotImplementedError: multi-GPU is
-ROADMAP Queue 1 item 13. Each codec call runs in a ``stream.compress`` or
-``stream.decompress`` profiler range.
+``container=True`` writes the RSNB block container of ``parallel/blocks``;
+``devices`` shards its blocks over a ``'data'`` mesh (:func:`_resolve_mesh`).
+Each codec call runs in a ``stream.compress`` or ``stream.decompress``
+profiler range.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from raisin_tpu_torch.engine.registry import expand_algorithms, get_codec
 from raisin_tpu_torch.formats import lzss
 from raisin_tpu_torch.ops import lzss_stream
 from raisin_tpu_torch.parallel.blocks import compress_container, decompress_container
+from raisin_tpu_torch.parallel.mesh import DeviceCountError, Mesh, data_mesh
 
 DEFAULT_WINDOW_SIZE = 4096
 
@@ -119,12 +120,23 @@ def get_compressed_file_from_path(path: str, device=None) -> CompressedFile:
         return CompressedFile(compressed=f.read(), device=device)
 
 
-def _check_single_device(devices) -> None:
-    if devices not in (None, 1, "1", ""):
-        raise NotImplementedError(
-            f"devices={devices!r}: raisin_tpu_torch runs on one card so far; "
-            f"multi-GPU comes with ROADMAP Queue 1 item 13"
-        )
+def _resolve_mesh(devices: int | str | None, device=None) -> Mesh | None:
+    """Build the 1-D ``'data'`` mesh for the container (raisin_tpu/engine/core.py:106).
+
+    ``devices``: None, 1, "1" or "" -> one device (no mesh); "auto" -> every
+    visible device of ``device``'s type (every card for None, one entry for
+    the CPU); N -> the first N. A count past what the machine offers raises
+    :class:`DeviceCountError` (``parallel.mesh.first_devices``).
+    """
+    if devices in (None, 1, "1", ""):
+        return None
+    if devices == "auto":
+        return data_mesh(device=device)
+    try:
+        n = int(devices)
+    except ValueError:
+        raise DeviceCountError(f"devices={devices!r}: expected a number or 'auto'") from None
+    return None if n <= 1 else data_mesh(n, device)
 
 
 def compress_file(
@@ -142,17 +154,19 @@ def compress_file(
     """Parity with engine.CompressFile (engine.go:157).
 
     With ``container=True`` the output is an RSNB block container (the
-    block-parallel path) instead of a raw layered stream; ``window`` sets
-    the LZSS search window (NewWriterLevel parity).
+    block-parallel path) instead of a raw layered stream; ``devices``
+    shards the container's blocks over a ``'data'`` mesh (see
+    :func:`_resolve_mesh`, checked before the file is read); ``window``
+    sets the LZSS search window (NewWriterLevel parity).
     """
-    _check_single_device(devices)
+    mesh = _resolve_mesh(devices, device)
     with open(path, "rb") as f:
         contents = f.read()
     if not quiet:
         print("Compressing...")
     if container:
         compressed = compress_container(
-            contents, tuple(algorithms), block_size,
+            contents, tuple(algorithms), block_size, mesh=mesh,
             window=window if window is not None else DEFAULT_WINDOW_SIZE, device=device,
         )
     else:
@@ -176,14 +190,14 @@ def decompress_file(
     devices: int | str | None = None,
     device=None,
 ) -> bytes:
-    """Parity with engine.DecompressFile (engine.go:187)."""
-    _check_single_device(devices)
+    """Parity with engine.DecompressFile (engine.go:187); ``devices`` as in :func:`compress_file`."""
+    mesh = _resolve_mesh(devices, device)
     with open(path, "rb") as f:
         contents = f.read()
     if not quiet:
         print("Decompressing...")
     if contents[:4] == b"RSNB":
-        decompressed = decompress_container(contents, device=device)
+        decompressed = decompress_container(contents, mesh=mesh, device=device)
     else:
         decompressed = decompress_bytes(contents, algorithms, backend, device=device)
     with open(output, "wb") as f:

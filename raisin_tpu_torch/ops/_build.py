@@ -43,7 +43,7 @@ SIGNATURES = {
     "rsn_arith_prepad": [_P, _P, _P, _P, _I, _I, _P],
     "rsn_arith_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "rsn_arith_events": [_P, _P, _P, _P, _P, _I, _I, _P],
-    "rsn_lzss_match": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "rsn_lzss_match": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "rsn_lzss_commit": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "rsn_lzss_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "rsn_huffman_encode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -149,6 +149,22 @@ def check(name: str, rc: int) -> None:
     if rc != 0:
         msg = library().rsn_error_string(rc).decode(errors="replace")
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+_count_lock = threading.Lock()
+
+
+def count(counter, key: str = "launches", n: int = 1) -> None:
+    """Add ``n`` to a wrapper's counter attribute (or a dict's entry) under one lock.
+
+    The container's mesh launches from one host thread a card, and an
+    unlocked ``+=`` could lose a count; the counts are summed over threads.
+    """
+    with _count_lock:
+        if isinstance(counter, dict):
+            counter[key] += n
+        else:
+            setattr(counter, key, getattr(counter, key) + n)
 
 
 def stream_handle(device) -> int:

@@ -180,7 +180,7 @@ def encode_bits(symbols: torch.Tensor, lengths: torch.Tensor, capw: int):
         return raw, bits, oflow
     lib = _build.library()
     with torch.cuda.device(dev):
-        encode_bits.launches += 1
+        _build.count(encode_bits)
         rc = lib.rsn_arith_encode(
             symbols.data_ptr(), lengths.data_ptr(), raw.data_ptr(), bits.data_ptr(),
             oflow.data_ptr(), B, S, capw, _build.stream_handle(dev),
@@ -222,7 +222,7 @@ def prepad_rows(raw: torch.Tensor, bits: torch.Tensor):
         return rows, byte_lens
     lib = _build.library()
     with torch.cuda.device(dev):
-        prepad_rows.launches += 1
+        _build.count(prepad_rows)
         rc = lib.rsn_arith_prepad(
             raw.data_ptr(), bits.data_ptr(), rows.data_ptr(), byte_lens.data_ptr(),
             B, capw, _build.stream_handle(dev),
@@ -359,7 +359,7 @@ def decode_rows(
         return syms, eof_ok
     lib = _build.library()
     with torch.cuda.device(dev):
-        decode_rows.launches += 1
+        _build.count(decode_rows)
         rc = lib.rsn_arith_decode(
             payload_rows.data_ptr(), byte_lens.data_ptr(), out_lens.data_ptr(),
             syms.data_ptr(), eof_ok.data_ptr(), B, capb, num_steps, _build.stream_handle(dev),
@@ -520,7 +520,7 @@ def encode_events(symbols: torch.Tensor, lengths: torch.Tensor):
     words = torch.empty((B, S), dtype=torch.int32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
-        encode_events.launches += 1
+        _build.count(encode_events)
         rc = lib.rsn_arith_events(
             symbols.data_ptr(), lengths.data_ptr(), slots.data_ptr(), slot0.data_ptr(), words.data_ptr(),
             B, S, _build.stream_handle(dev),

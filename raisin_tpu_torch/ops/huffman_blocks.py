@@ -43,7 +43,7 @@ import torch
 from torch.profiler import record_function
 
 from raisin_tpu_torch.formats import huffman as hf
-from raisin_tpu_torch.ops import huffman_rows
+from raisin_tpu_torch.ops import _build, huffman_rows
 
 # blocks that took the host oracle since the last reset, per direction
 host_split = {"encode": 0, "decode": 0}
@@ -167,7 +167,7 @@ def encode_blocks(x: torch.Tensor, lengths: torch.Tensor, first_block: int = 0):
         codes, code_lens, prefixes, on_host = code_tables(counts, first_block)
     host = np.nonzero(on_host)[0]
     if host.size:
-        host_split["encode"] += int(host.size)
+        _build.count(host_split, "encode", int(host.size))
         rows_np = x[torch.from_numpy(host).to(dev)].cpu().numpy()
         for row, b in zip(rows_np, host.tolist()):
             prefixes[b] = hf.compress(row[: n[b]].tobytes())
@@ -245,7 +245,7 @@ def decode_blocks(flat: torch.Tensor, data: bytes, starts: np.ndarray, sizes: np
             pads[b] = data[cut + len(sep)]
             pstart[b] = cut + len(sep) + 1 - starts[0]
             blens[b] = hi - (cut + len(sep) + 1)
-    host_split["decode"] += len(host)
+    _build.count(host_split, "decode", len(host))
     with record_function("rsnb.dec.rows"):
         capb = max(4, -(-int(blens.max()) // 4) * 4)
         cols = torch.arange(capb, device=dev)[None, :]

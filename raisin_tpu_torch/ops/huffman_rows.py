@@ -159,7 +159,7 @@ def encode_rows(x: torch.Tensor, lengths: torch.Tensor, codes: torch.Tensor, cod
         return rows, byte_lens, pads
     lib = _build.library()
     with torch.cuda.device(dev):
-        encode_rows.launches += 1
+        _build.count(encode_rows)
         rc = lib.rsn_huffman_encode(
             x.data_ptr(), lengths.data_ptr(), codes.data_ptr(), code_lens.data_ptr(), bits.data_ptr(),
             rows.data_ptr(), byte_lens.data_ptr(), pads.data_ptr(), totals.data_ptr(), work.data_ptr(), B, S, capw,
@@ -289,7 +289,7 @@ def decode_rows(payload_rows: torch.Tensor, pads: torch.Tensor, byte_lens: torch
     work = torch.empty(workspace_bytes(B, capb) // 8, dtype=torch.int64, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
-        decode_rows.launches += 1
+        _build.count(decode_rows)
         rc = lib.rsn_huffman_decode(
             payload_rows.data_ptr(), pads.data_ptr(), byte_lens.data_ptr(), tables.data_ptr(),
             rows.data_ptr(), counts.data_ptr(), ok.data_ptr(), work.data_ptr(), B, capb, cap_out,

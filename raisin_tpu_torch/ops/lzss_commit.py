@@ -130,7 +130,7 @@ def commit_tokens(x: torch.Tensor, L: torch.Tensor, D: torch.Tensor, lengths: to
     work = torch.empty(workspace_bytes(B, S) // 8, dtype=torch.int64, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
-        commit_tokens.launches += 1
+        _build.count(commit_tokens)
         rc = lib.rsn_lzss_commit(
             x.data_ptr(), L.data_ptr(), D.data_ptr(), lengths.data_ptr(),
             tok.data_ptr(), tok_len.data_ptr(), work.data_ptr(), B, S, _build.stream_handle(dev),

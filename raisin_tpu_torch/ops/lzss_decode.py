@@ -166,7 +166,7 @@ def walk_tokens(tok: torch.Tensor, tok_len: torch.Tensor, cap_out: int, stats: t
     err = torch.empty(B, dtype=torch.int32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
-        walk_tokens.launches += 1
+        _build.count(walk_tokens)
         rc = lib.rsn_lzss_decode(
             tok.data_ptr(), tok_len.data_ptr(), rows.data_ptr(), out_len.data_ptr(),
             err.data_ptr(), 0 if stats is None else stats.data_ptr(), B, S, cap_out, _build.stream_handle(dev),

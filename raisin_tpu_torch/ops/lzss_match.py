@@ -35,6 +35,14 @@ one launch of one CTA per tile of positions:
   ``c <= d <= window``);
 - wider windows: the sweep path, one tile per block.
 
+With a distance sub-range (d_lo, d_hi], the kernel searches it alone:
+the tiles' spans reach ``d_hi`` back, the chain walk passes over
+candidates nearer than ``d_lo + 1`` (each still a step of the budget),
+the one-byte rule looks for the earliest occurrence at distances in the
+range, and the sweep runs the recurrence over ``d_lo + 1 .. d_hi``. So
+the far half of a window costs about what the whole window does: its
+walks still go through the near candidates.
+
 The wrapper reads back how many tiles took each path, into
 ``find_matches.chain_tiles`` and ``find_matches.sweep_tiles`` beside
 ``find_matches.launches`` (a tile wholly past its block's length counts in
@@ -59,14 +67,24 @@ def check_window(window: int) -> None:
         )
 
 
-def _find_matches_torch(x: torch.Tensor, lengths: torch.Tensor, window: int):
-    """Plain version of kernel D: (L, D), each (B, S) int32."""
+def _check_range(window: int, d_lo: int, d_hi: int | None) -> int:
+    """Check the distance sub-range (d_lo, d_hi] of ``window``; -> d_hi (``window`` for None)."""
+    check_window(window)
+    d_hi = window if d_hi is None else d_hi
+    if not 0 <= d_lo < d_hi <= window:
+        raise ValueError(f"distance range ({d_lo}, {d_hi}] outside 0 <= d_lo < d_hi <= window = {window}")
+    return d_hi
+
+
+def _find_matches_torch(x: torch.Tensor, lengths: torch.Tensor, window: int, d_lo: int = 0, d_hi: int | None = None):
+    """Plain version of kernel D over distances (d_lo, d_hi]: (L, D), each (B, S) int32."""
+    d_hi = window if d_hi is None else d_hi
     B, S = x.shape
     dev = x.device
     n = lengths.to(torch.int64)
     pos = torch.arange(S, dtype=torch.int32, device=dev)
     best = torch.zeros((B, S), dtype=torch.int64, device=dev)
-    for d in range(1, min(window, S - 1) + 1):
+    for d in range(d_lo + 1, min(d_hi, S - 1) + 1):
         # eq at positions i in [d, S): x[i] == x[i - d] and i < n
         j = pos[: S - d]  # i - d
         eq = (x[:, d:] == x[:, :-d]) & (pos[None, d:] < n[:, None])
@@ -79,7 +97,7 @@ def _find_matches_torch(x: torch.Tensor, lengths: torch.Tensor, window: int):
     return (best >> 16).to(torch.int32), (best & 0xFFFF).to(torch.int32)
 
 
-def find_matches(x: torch.Tensor, lengths: torch.Tensor, window: int):
+def find_matches(x: torch.Tensor, lengths: torch.Tensor, window: int, d_lo: int = 0, d_hi: int | None = None):
     """Per-position greedy longest match (kernel D, or its plain version).
 
     Args:
@@ -87,12 +105,18 @@ def find_matches(x: torch.Tensor, lengths: torch.Tensor, window: int):
         ignored).
       lengths: (B,) int32, each <= S.
       window: search window, 1..65535.
+      d_lo, d_hi: search only the distances in (d_lo, d_hi], with
+        0 <= d_lo < d_hi <= window (``d_hi=None``: the window). This is the
+        JAX package's ``_match_scan(xb, n, window, wl=d_hi - d_lo, d0=d_lo)``,
+        one rank's shard of the tensor-parallel search
+        (``parallel/lzss_sharded.py``).
 
-    Returns (L, D): (B, S) int32 each.
+    Returns (L, D): (B, S) int32 each; (0, 0) where no distance of the
+    range matches.
     """
-    check_window(window)
+    d_hi = _check_range(window, d_lo, d_hi)
     if x.device.type == "cpu":
-        return _find_matches_torch(x, lengths, window)
+        return _find_matches_torch(x, lengths, window, d_lo, d_hi)
     B, S = _check_cuda("find_matches", x, torch.uint8, 2)
     _check_cuda("find_matches", lengths, torch.int32, 1, (B,), x.device)
     dev = x.device
@@ -103,15 +127,15 @@ def find_matches(x: torch.Tensor, lengths: torch.Tensor, window: int):
     counts = torch.zeros(2, dtype=torch.int32, device=dev)  # tiles by path: chain, sweep
     lib = _build.library()
     with torch.cuda.device(dev):
-        find_matches.launches += 1
+        _build.count(find_matches)
         rc = lib.rsn_lzss_match(
             x.data_ptr(), lengths.data_ptr(), L.data_ptr(), D.data_ptr(), counts.data_ptr(),
-            B, S, window, _build.stream_handle(dev),
+            B, S, d_lo, d_hi, _build.stream_handle(dev),
         )
     _build.check("rsn_lzss_match", rc)
     chain, sweep = counts.tolist()
-    find_matches.chain_tiles += chain
-    find_matches.sweep_tiles += sweep
+    _build.count(find_matches, "chain_tiles", chain)
+    _build.count(find_matches, "sweep_tiles", sweep)
     return L, D
 
 

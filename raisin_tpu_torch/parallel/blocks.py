@@ -46,6 +46,7 @@ Layout (little-endian), as in the JAX package:
 
 from __future__ import annotations
 
+import concurrent.futures
 import struct
 
 import numpy as np
@@ -57,6 +58,7 @@ from raisin_tpu_torch.ops import arithmetic_rows, escape, huffman_blocks, lzss_d
 from raisin_tpu_torch.ops.device import d2h as _d2h
 from raisin_tpu_torch.ops.device import h2d as _h2d
 from raisin_tpu_torch.ops.device import resolve_device
+from raisin_tpu_torch.parallel.mesh import Mesh, block_range
 
 MAGIC = b"RSNB"
 VERSION = 2  # v2 adds the LZSS window u32 (v1 files parse as window=4096)
@@ -176,12 +178,14 @@ def _check_no_overflow(oflow: np.ndarray, first_block: int) -> None:
 
 
 def _encode_rows(
-    data: bytes, block_size: int, device: torch.device, algorithms: tuple[str, ...], window: int
+    data: bytes, block_size: int, device: torch.device, algorithms: tuple[str, ...], window: int,
+    first_block: int = 0,
 ) -> tuple[np.ndarray, torch.Tensor, np.ndarray | None]:
     """Encode every block -> (payload sizes, concatenated payloads on ``device``, token lengths).
 
     The token lengths (None for pipelines without an aux table) become the
-    container's aux table.
+    container's aux table. ``first_block`` is the container index of the
+    first block, for error messages.
     """
     W, lengths = _block_lengths(len(data), block_size)
     B = len(lengths)
@@ -195,7 +199,7 @@ def _encode_rows(
             # zeros past the ragged end
             x = F.pad(x, (0, (hi - lo) * W - x.numel())).view(hi - lo, W)
             n = torch.from_numpy(lengths[lo:hi]).to(device)
-        body, got, tok = _encode_batch(x, n, algorithms, window, lo)
+        body, got, tok = _encode_batch(x, n, algorithms, window, first_block + lo)
         sizes.append(got)
         bodies.append(body)
         if tok is not None:
@@ -203,8 +207,8 @@ def _encode_rows(
     return np.concatenate(sizes), torch.cat(bodies), np.concatenate(toks) if toks else None
 
 
-def _lzss_tail(tok: torch.Tensor, tok_len: torch.Tensor, out_lens: np.ndarray, first_block: int) -> bytes:
-    """Kernel F walks B token streams, then the escape decode; -> the blocks' bytes.
+def _lzss_tail(tok: torch.Tensor, tok_len: torch.Tensor, out_lens: np.ndarray, first_block: int) -> torch.Tensor:
+    """Kernel F walks B token streams, then the escape decode; -> the blocks' bytes, concatenated on the device.
 
     The walk's rows hold ``2 * max(out_lens)`` bytes (escaping at most
     doubles a block); each block's decoded length must equal ``out_lens``.
@@ -218,8 +222,7 @@ def _lzss_tail(tok: torch.Tensor, tok_len: torch.Tensor, out_lens: np.ndarray, f
     if wrong.size:
         i = wrong[0]
         raise ValueError(f"container: block {first_block + i} decoded {dec_lens[i]} bytes, expected {out_lens[i]}")
-    with record_function("rsnb.dec.d2h"):
-        return _d2h(plain)
+    return plain
 
 
 def _decode_arith(flat, sizes, coded, device, lo: int):
@@ -264,15 +267,31 @@ def _decode_huffman(flat, data, starts, sizes, cap_out: int, lzss: bool, tok_len
     return rows, torch.from_numpy(counts.astype(np.int32)).to(device), host
 
 
+def _put(out: torch.Tensor, at: int, piece) -> int:
+    """Copy ``piece`` (a uint8 tensor on any device, or bytes) into ``out[at:]``, as far as ``out``
+    reaches; -> its length. A card's piece is copied straight into ``out`` (pinned host memory)."""
+    n = len(piece)
+    room = max(0, min(n, out.numel() - at))
+    if room and torch.is_tensor(piece):
+        with record_function("rsnb.dec.d2h"):
+            out[at : at + room].copy_(piece[:room])
+    elif room:
+        out.numpy()[at : at + room] = np.frombuffer(piece, dtype=np.uint8, count=room)
+    return n
+
+
 def _decode_rows(
     data: bytes, pos: int, algorithms: tuple[str, ...], sizes: np.ndarray, out_lens: np.ndarray,
-    device: torch.device, tok_lens: np.ndarray | None,
-) -> bytes:
-    """Decode the concatenated payloads at ``data[pos:]`` of known decoded lengths.
+    device: torch.device, tok_lens: np.ndarray | None, out: torch.Tensor, first_block: int = 0,
+) -> int:
+    """Decode the concatenated payloads at ``data[pos:]`` of known decoded lengths into ``out``,
+    the host buffer of these blocks' bytes; -> the bytes they decoded to.
 
     ``tok_lens`` is the aux table of the containers that carry one. The
     LZSS pipelines end in kernel F and the escape decode on the whole
     batch, the JAX package's ``_dec_stage`` and ``_dec_tail``.
+    ``first_block`` is the container index of the first block, for error
+    messages.
     """
     B = len(sizes)
     lzss = algorithms[0] == "lzss"
@@ -281,18 +300,18 @@ def _decode_rows(
         steps = max(steps, int(tok_lens.max()) + 1)
     maxb = _batch_blocks(device, CUDA_BYTES_PER_STEP[algorithms][1], steps)
     offsets = np.concatenate([[0], np.cumsum(sizes)])
-    out = []
+    done = 0
     for lo in range(0, B, maxb):
         hi = min(lo + maxb, B)
         with record_function("rsnb.dec.h2d"):
             flat = _h2d(memoryview(data)[pos + offsets[lo] : pos + offsets[hi]], device)
         part = slice(lo, hi)
+        index = first_block + lo
         if algorithms in (ARITH, LZ_ARITH):
             coded = out_lens[part] if tok_lens is None else tok_lens[part]
-            tok, tok_len = _decode_arith(flat, sizes[part], coded, device, lo)
+            tok, tok_len = _decode_arith(flat, sizes[part], coded, device, index)
             if algorithms == ARITH:
-                with record_function("rsnb.dec.d2h"):
-                    out.append(_d2h(_rows_payloads(tok, tok_len)))
+                done += _put(out, done, _rows_payloads(tok, tok_len))
                 continue
         elif algorithms == LZ:
             tok_len = torch.from_numpy(sizes[part].astype(np.int32)).to(device)
@@ -306,21 +325,23 @@ def _decode_rows(
                 cap = int(out_lens[part].max()) * (2 if lzss else 1)
             tok, tok_len, host = _decode_huffman(
                 flat, data, pos + offsets[lo:hi], sizes[part], cap, lzss,
-                None if tok_lens is None else tok_lens[part], device, lo,
+                None if tok_lens is None else tok_lens[part], device, index,
             )
             if algorithms == HUFF:
-                out.append(_huffman_output(tok, tok_len, host))
+                done += _put(out, done, _huffman_output(tok, tok_len, host))
                 continue
-        out.append(_lzss_tail(tok, tok_len, out_lens[part], lo))
-    return b"".join(out)
+        done += _put(out, done, _lzss_tail(tok, tok_len, out_lens[part], index))
+    return done
 
 
-def _huffman_output(rows: torch.Tensor, counts: torch.Tensor, host: dict[int, bytes]) -> bytes:
-    """The decoded bytes of a ("huffman",) batch, the host oracle's blocks in their places."""
-    with record_function("rsnb.dec.d2h"):
-        flat = _d2h(_rows_payloads(rows, counts))
+def _huffman_output(rows: torch.Tensor, counts: torch.Tensor, host: dict[int, bytes]) -> torch.Tensor | bytes:
+    """The decoded bytes of a ("huffman",) batch, the host oracle's blocks in their places: on the
+    device when the card decoded every block."""
+    flat = _rows_payloads(rows, counts)
     if not host:
         return flat
+    with record_function("rsnb.dec.d2h"):
+        flat = _d2h(flat)
     pieces = _split(flat, counts.cpu().tolist())
     for b, decoded in host.items():
         pieces[b] = decoded
@@ -335,12 +356,13 @@ def compress_container(
     data: bytes,
     algorithms: list[str] | tuple[str, ...] = LZ_ARITH,
     block_size: int = DEFAULT_BLOCK_SIZE,
+    mesh: Mesh | None = None,
     window: int = 4096,
     device: torch.device | str | None = None,
 ) -> bytes:
     """Block-parallel encode into the RSNB container.
 
-    Same arguments as raisin_tpu.parallel.blocks.compress_container, plus
+    The arguments of raisin_tpu.parallel.blocks.compress_container, plus
     ``device`` (:func:`resolve_device`). The pipelines of :data:`PIPELINES`
     run on the card (``("lzss", "arithmetic")`` is the default), with the
     LZSS window in 1..65535 (ValueError otherwise); the other pipelines
@@ -348,35 +370,89 @@ def compress_container(
     pipelines raise the oracle's ValueError on empty input. Any other
     pipeline encodes block by block through the engine's ``compress_bytes``
     (:func:`_encode_per_block`).
+
+    With a ``mesh`` (``parallel.mesh``), each ``'data'`` entry encodes its
+    contiguous range of blocks on its own device, one host thread each,
+    and the payloads join in block order: the bytes equal the call
+    without it. ``device`` then only names the mesh's device type.
     """
     algorithms = tuple(algorithms)
     if block_size <= 0:
         raise ValueError("block_size must be positive")
-    dev = resolve_device(device)
+    devices = _devices(mesh, device)
+    num_blocks = max(1, -(-len(data) // block_size))
     if algorithms not in PIPELINES:
         with record_function("rsnb.compress"):
-            return _encode_per_block(data, algorithms, block_size, window, dev)
+            parts = _over_ranges(num_blocks, devices, lambda lo, hi, dev: _encode_per_block(
+                memoryview(data)[lo * block_size : hi * block_size], algorithms, block_size, window, dev))
+            return assemble_container([p for part in parts for p in part], [], algorithms, block_size, window,
+                                      len(data))
     if algorithms[0] == "lzss":
         lzss_match.check_window(window)
     with record_function("rsnb.compress"):
-        sizes, body, toks = _encode_rows(data, block_size, dev, algorithms, window)
+        parts = _over_ranges(num_blocks, devices, lambda lo, hi, dev: _encode_rows(
+            memoryview(data)[lo * block_size : hi * block_size], block_size, dev, algorithms, window, lo))
+        sizes = np.concatenate([part[0] for part in parts])
+        toks = [part[2] for part in parts if part[2] is not None]
         with record_function("rsnb.enc.d2h"):
-            aux = [toks] if _writes_aux(algorithms, window) else []
+            aux = [np.concatenate(toks)] if _writes_aux(algorithms, window) else []
             head = _header(sizes, aux, algorithms, block_size, window, len(data))
-            # framed on the device: the container comes back in one copy
-            return _d2h(torch.cat([_h2d(head, dev), body]))
+            if len(parts) == 1:  # framed on the device: the container comes back in one copy
+                body = parts[0][1]
+                return _d2h(torch.cat([_h2d(head, body.device), body]))
+            return b"".join([head, *(_d2h(part[1]) for part in parts)])
 
 
-def _encode_per_block(data: bytes, algorithms: tuple[str, ...], block_size: int, window: int,
-                      device: torch.device) -> bytes:
+def _devices(mesh: Mesh | None, device) -> list[torch.device]:
+    """The device of each ``'data'`` entry, or the one device of an unsharded call.
+
+    A ``device`` beside a mesh must name the mesh's device type.
+    """
+    if mesh is None:
+        return [resolve_device(device)]
+    found = mesh.data_devices()
+    if device is not None and any(d.type != torch.device(device).type for d in found):
+        raise ValueError(f"mesh devices {sorted({str(d) for d in found})} are not of device {str(device)!r}'s type")
+    return found
+
+
+def _on_device(fn, lo: int, hi: int, dev: torch.device):
+    """``fn(lo, hi, dev)`` with ``dev`` as the thread's current CUDA device."""
+    if dev.type != "cuda":
+        return fn(lo, hi, dev)
+    with torch.cuda.device(dev):
+        return fn(lo, hi, dev)
+
+
+def _over_ranges(num_blocks: int, devices: list[torch.device], fn) -> list:
+    """``fn(lo, hi, device)`` over each entry's contiguous block range, in block order.
+
+    Ranges come from :func:`parallel.mesh.block_range`; an empty range runs
+    nothing. On distinct devices the ranges run in one host thread each
+    (PyTorch's operators and the kernel launches release the interpreter
+    lock); entries that share one device (the CPU entries of a test mesh)
+    run in turn, since threads would only contend for it and for the
+    interpreter lock that the plain versions' step loops hold. The first
+    exception raised in any range is raised here.
+    """
+    jobs = [(*block_range(num_blocks, i, len(devices)), d) for i, d in enumerate(devices)]
+    jobs = [job for job in jobs if job[1] > job[0]]
+    if len(jobs) == 1 or len(set(devices)) == 1:
+        return [_on_device(fn, *job) for job in jobs]
+    with concurrent.futures.ThreadPoolExecutor(len(jobs), thread_name_prefix="rsnb") as pool:
+        futures = [pool.submit(_on_device, fn, *job) for job in jobs]
+        return [f.result() for f in futures]
+
+
+def _encode_per_block(data, algorithms: tuple[str, ...], block_size: int, window: int,
+                      device: torch.device) -> list[bytes]:
     """A pipeline without a device path, block by block through ``compress_bytes`` under the
     preferred backend, as the JAX package encodes it (raisin_tpu/parallel/blocks.py:973-980)."""
     from raisin_tpu_torch.engine.core import compress_bytes
 
     with record_function("rsnb.enc.host"):
-        blocks = [data[i : i + block_size] for i in range(0, len(data), block_size)] or [b""]
-        payloads = [compress_bytes(b, algorithms, window=window, device=device) for b in blocks]
-    return assemble_container(payloads, [], algorithms, block_size, window, len(data))
+        blocks = [bytes(data[i : i + block_size]) for i in range(0, len(data), block_size)] or [b""]
+        return [compress_bytes(b, algorithms, window=window, device=device) for b in blocks]
 
 
 def _writes_aux(algorithms: tuple[str, ...], window: int) -> bool:
@@ -448,10 +524,17 @@ def parse_container(data: bytes):
     return algorithms, block_size, orig_size, _split(data, sizes, pos), aux, window
 
 
-def decompress_container(data: bytes, device: torch.device | str | None = None) -> bytes:
-    """Block-parallel decode of an RSNB container; the pipelines of :data:`PIPELINES` on the card."""
+def decompress_container(data: bytes, mesh: Mesh | None = None,
+                         device: torch.device | str | None = None) -> bytes:
+    """Block-parallel decode of an RSNB container; the pipelines of :data:`PIPELINES` on the card.
+
+    With a ``mesh``, each ``'data'`` entry decodes its contiguous range of
+    blocks on its own device and the output joins in block order, as
+    :func:`compress_container` encodes.
+    """
+    devices = _devices(mesh, device)
     with record_function("rsnb.decompress"):
-        return _decompress_container(data, resolve_device(device))
+        return _decompress_container(data, devices)
 
 
 def _decode_per_block(data: bytes, pos: int, sizes, algorithms: tuple[str, ...], device: torch.device) -> bytes:
@@ -464,7 +547,7 @@ def _decode_per_block(data: bytes, pos: int, sizes, algorithms: tuple[str, ...],
         return b"".join(decompress_bytes(p, algorithms, device=device) for p in _split(data, sizes, pos))
 
 
-def _decompress_container(data: bytes, device: torch.device) -> bytes:
+def _decompress_container(data: bytes, devices: list[torch.device]) -> bytes:
     algorithms, block_size, orig_size, sizes, aux, window, pos = _parse_header(data)
     if orig_size == 0:
         return b""
@@ -474,11 +557,21 @@ def _decompress_container(data: bytes, device: torch.device) -> bytes:
     sizes = np.array(sizes, dtype=np.int64)
     if pos + int(sizes.sum()) > len(data):
         raise ValueError("container: payloads run past the end of the data")
+    offsets = pos + np.concatenate([[0], np.cumsum(sizes)])
+    out_lens = np.minimum(block_size, orig_size - block_size * np.arange(len(sizes), dtype=np.int64))
+    # every range decodes into its slice of one host buffer (pinned for the cards' copies): no
+    # bytes a range, no join
+    starts = np.concatenate([[0], np.cumsum(np.maximum(out_lens, 0))])
+    out = torch.empty(orig_size, dtype=torch.uint8, pin_memory=any(d.type == "cuda" for d in devices))
     if algorithms not in PIPELINES or (algorithms == LZ_ARITH and tok_lens is None):
-        out = _decode_per_block(data, pos, sizes, algorithms, device)
+        def decode(lo, hi, dev):
+            piece = _decode_per_block(data, int(offsets[lo]), sizes[lo:hi], algorithms, dev)
+            return _put(out[starts[lo] : starts[hi]], 0, piece)
     else:
-        out_lens = np.minimum(block_size, orig_size - block_size * np.arange(len(sizes), dtype=np.int64))
-        out = _decode_rows(data, pos, algorithms, sizes, out_lens, device, tok_lens)
-    if len(out) != orig_size:
-        raise ValueError(f"container: decoded {len(out)} bytes, expected {orig_size}")
-    return out
+        def decode(lo, hi, dev):
+            return _decode_rows(data, int(offsets[lo]), algorithms, sizes[lo:hi], out_lens[lo:hi], dev,
+                                None if tok_lens is None else tok_lens[lo:hi], out[starts[lo] : starts[hi]], lo)
+    done = sum(_over_ranges(len(sizes), devices, decode))
+    if done != orig_size:
+        raise ValueError(f"container: decoded {done} bytes, expected {orig_size}")
+    return out.numpy().tobytes()

@@ -25,6 +25,7 @@ import raisin_tpu
 import raisin_tpu.native
 from raisin_tpu import cli as jax_cli
 from raisin_tpu.engine import registry as jax_registry
+from raisin_tpu.parallel import blocks as jax_blocks
 from raisin_tpu_torch import cli as port_cli
 from raisin_tpu_torch.engine import registry as port_registry
 from tests.fixtures import VERSE, random_text
@@ -151,9 +152,27 @@ def test_corrupt_stream_fails_like_jax(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("command", ["-compress", "-decompress"])
-def test_several_devices_name_item_13(command, tmp_path, capsys):
-    rc, out, left = _run("port", tmp_path, INPUTS, ["raisin", command, "{d}/a.txt", "-devices=2"], capsys)
-    assert rc == 1 and "ROADMAP Queue 1 item 13" in out and left == INPUTS
+def test_several_devices_name_item_13(command, tmp_path, capsys, monkeypatch):
+    """-devices=2 shards the container over two entries (the port's CPU entries, JAX's virtual
+    devices) and writes the unsharded bytes; more devices than the machine has exit 1 and leave
+    the files as they were. (The name dates from when the port refused -devices.)"""
+    if command == "-compress":
+        files, argv = INPUTS, ["raisin", "-compress", "-container", "{d}/a.txt"]
+    else:
+        c = jax_blocks.compress_container(TEXT, ("lzss", "arithmetic"), block_size=512)
+        files, argv = {"a.rsn": c}, ["grape", "-decompress", "{d}/a.rsn"]
+    monkeypatch.setattr("os.cpu_count", lambda: 8)  # the CPU entries a count may name
+    for sub in ("sharded", "many"):
+        (tmp_path / sub).mkdir()
+    rc, _, left = _both(tmp_path / "sharded", files, argv + ["-devices=2", "-blocksize=512"], capsys)
+    assert rc == 0
+    _, _, unsharded = _run("port", tmp_path, files, argv + ["-blocksize=512"], capsys)
+    assert left == unsharded
+    assert (left["a.txt.rsn"] if command == "-compress" else left["a"]) == (
+        jax_blocks.compress_container(TEXT, ("lzss", "arithmetic"), block_size=512)
+        if command == "-compress" else TEXT)
+    rc, out, left = _run("port", tmp_path / "many", files, argv + ["-devices=99"], capsys)
+    assert rc == 1 and out == "devices=99: more than the 8 visible CPU cores\n" and left == files
 
 
 def _table_rows(out: str) -> list[list[str]]:

@@ -118,16 +118,34 @@ def test_compressed_file_writes_and_reads(tmp_path):
     assert again.read() == DATA
 
 
-def test_several_devices_name_their_roadmap_item(tmp_path):
+def test_several_devices_name_their_roadmap_item(tmp_path, monkeypatch):
+    """``devices`` shards the container: 2 and "auto" (one CPU entry) give the unsharded bytes,
+    raw streams ignore it, and 99 raises ValueError before any file is written. (The name dates
+    from when the port refused ``devices``.)"""
     src = tmp_path / "in.txt"
     src.write_bytes(DATA)
+    want = raisin_tpu.compress_file(["lzss", "arithmetic"], str(src), str(tmp_path / "jax.rsn"), quiet=True,
+                                    container=True, block_size=256)
+    for devices in (2, "auto", None):
+        out = tmp_path / f"{devices}.rsn"
+        got = raisin_tpu_torch.compress_file(["lzss", "arithmetic"], str(src), str(out), quiet=True, container=True,
+                                             block_size=256, devices=devices, device=CPU)
+        assert got == want == out.read_bytes()
+        back = raisin_tpu_torch.decompress_file(["lzss", "arithmetic"], str(out), str(out) + ".out", quiet=True,
+                                                devices=devices, device=CPU)
+        assert back == DATA
+    raw = raisin_tpu_torch.compress_file(["lzss"], str(src), str(src) + ".rsn", quiet=True, devices=2, device=CPU)
+    monkeypatch.setattr("os.cpu_count", lambda: 8)  # the CPU entries a count may name
+    assert raw == lzss_ref.compress(DATA)
     for call in (
-        lambda: raisin_tpu_torch.compress_file(["lzss"], str(src), str(src) + ".rsn", quiet=True, devices=2, device=CPU),
-        lambda: raisin_tpu_torch.decompress_file(["lzss"], str(src), str(src) + ".out", quiet=True, devices="auto",
-                                                 device=CPU),
+        lambda: raisin_tpu_torch.compress_file(["lzss"], str(src), str(tmp_path / "x.rsn"), quiet=True, devices=99,
+                                               container=True, device=CPU),
+        lambda: raisin_tpu_torch.decompress_file(["lzss"], str(src), str(tmp_path / "x.out"), quiet=True,
+                                                 devices=99, device=CPU),
     ):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
+        with pytest.raises(ValueError, match="devices=99: more than the"):
             call()
+    assert not (tmp_path / "x.rsn").exists() and not (tmp_path / "x.out").exists()
 
 
 @pytest.mark.parametrize("name", ["mcc", "dmc", "flate", "gzip", "lzw", "zlib", "all", "suite"])

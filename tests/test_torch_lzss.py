@@ -118,8 +118,9 @@ def _model_run(x: bytes, i: int, j: int, lim: int) -> tuple[int, int]:
     return min(run, lim), words
 
 
-def _model_chain_tile(x: bytes, window: int, p: int, pe: int, budget: int):
-    """Kernel D's chain path on positions [p, pe): (L, D) lists, or None past the budget."""
+def _model_chain_tile(x: bytes, window: int, p: int, pe: int, budget: int, d_lo: int = 0):
+    """Kernel D's chain path on positions [p, pe) and distances (d_lo, window]:
+    (L, D) lists, or None past the budget."""
     n = len(x)
     s0 = max(0, p - window)
     prev, head = {}, {}
@@ -140,6 +141,8 @@ def _model_chain_tile(x: bytes, window: int, p: int, pe: int, budget: int):
         for j in chain:
             steps += 1
             d = i - j
+            if d <= d_lo:  # outside the range: passed over, a step all the same
+                continue
             # from best = 4 on, a candidate whose bytes 2, 3 differ is passed over; then
             # bytes off .. best - 1 equal: a tie is possible; byte best too: a longer run is
             if (best < 4 or x[j + 2 : j + 4] == x[i + 2 : i + 4]) and (
@@ -173,26 +176,26 @@ def _model_chain_tile(x: bytes, window: int, p: int, pe: int, budget: int):
                             best_d = d
         if steps > budget:
             return None
-        if best < 2:  # no 2-gram match: the earliest occurrence of the byte in the window
-            k = x.find(x[i : i + 1], i - maxd, i) if maxd > 0 else -1
+        if best < 2:  # no 2-gram match: the earliest occurrence of the byte in the range
+            k = x.find(x[i : i + 1], i - maxd, i - d_lo) if maxd > d_lo else -1
             best, best_d = (1, i - k) if k >= 0 else (0, 0)
         Ls.append(best)
         Ds.append(best_d)
     return Ls, Ds
 
 
-def _model_sweep_tile(x: bytes, window: int, p: int, pe: int, tile: int):
-    """Kernel D's sweep path: the capped-run recurrence over every distance,
-    walked down from min(n, p + tile + window), keys kept for [p, pe)."""
+def _model_sweep_tile(x: bytes, window: int, p: int, pe: int, tile: int, d_lo: int = 0):
+    """Kernel D's sweep path: the capped-run recurrence over the distances
+    (d_lo, window], walked down from min(n, p + tile + window), keys kept for [p, pe)."""
     a = np.frombuffer(x, np.uint8).astype(np.int64)
     s0 = max(0, p - window)
     e = min(len(x), p + tile + window)
     maxd = min(window, pe - 1)
     Ls, Ds = np.zeros(pe - p, np.int64), np.zeros(pe - p, np.int64)
-    if maxd <= 0:
+    if maxd <= d_lo:
         return Ls, Ds
-    d = np.arange(1, maxd + 1)
-    c = np.zeros(maxd, np.int64)
+    d = np.arange(d_lo + 1, maxd + 1)
+    c = np.zeros(maxd - d_lo, np.int64)
     for i in range(e - 1, p - 1, -1):
         j = i - d
         eq = (j >= s0) & (a[np.maximum(j, 0)] == a[i])
@@ -203,19 +206,21 @@ def _model_sweep_tile(x: bytes, window: int, p: int, pe: int, tile: int):
     return Ls, Ds
 
 
-def _kernel_model(x: bytes, window: int, tile: int, budget: int = KD["BUDGET"]):
+def _kernel_model(x: bytes, window: int, tile: int, budget: int = KD["BUDGET"], d_lo: int = 0):
     """A CPU model of kernel D on one escaped block at a window <= CHAIN_MAX_WINDOW:
     tiles of ``tile`` positions, each on the chain path unless a position
-    passes ``budget`` steps, then on the sweep path. Returns (L, D, tiles by path)."""
+    passes ``budget`` steps, then on the sweep path. With ``d_lo``, the
+    distances (d_lo, window] only (the kernel's d_lo, d_hi = window).
+    Returns (L, D, tiles by path)."""
     assert window <= KD["CHAIN_MAX_WINDOW"]
     n = len(x)
     L, D = np.zeros(n, np.int64), np.zeros(n, np.int64)
     paths = {"chain": 0, "sweep": 0}
     for p in range(0, n, tile):
         pe = min(p + tile, n)
-        got = _model_chain_tile(x, window, p, pe, budget)
+        got = _model_chain_tile(x, window, p, pe, budget, d_lo)
         paths["chain" if got else "sweep"] += 1
-        L[p:pe], D[p:pe] = got or _model_sweep_tile(x, window, p, pe, tile)
+        L[p:pe], D[p:pe] = got or _model_sweep_tile(x, window, p, pe, tile, d_lo)
     return L, D, paths
 
 
@@ -259,6 +264,34 @@ def test_kernel_model_on_blocks_of_length_0_to_3(window):
         assert L.tolist() == Lp[k, : len(b)].tolist() and D.tolist() == Dp[k, : len(b)].tolist(), b
         assert list(zip(D.tolist(), L.tolist())) == lzss_ref.find_matches(b, window), b
         assert paths == {"chain": -(-len(b) // 2), "sweep": 0}
+
+
+@functools.cache
+def _range_scan(window: int, d_lo: int, d_hi: int):
+    """The XLA scan's (L, D) over the distances (d_lo, d_hi] on every block of BLOCKS."""
+    names = list(BLOCKS)
+    encs = [lzss_ref.encode_opening_symbols(BLOCKS[k]) for k in names]
+    x, lengths = _matrix(encs, S_MATCH, -1)
+    out = [lzss_jax._match_scan(jnp.asarray(x[i]), int(lengths[i]), window, d_hi - d_lo, jnp.int32(d_lo))
+           for i in range(len(names))]
+    return names, encs, [(np.asarray(L), np.asarray(D)) for L, D, _ in out]
+
+
+@pytest.mark.parametrize("budget", [KD["BUDGET"], 48])  # the kernel's, and one that sends tiles to the sweep
+@pytest.mark.parametrize("window, d_lo, d_hi", [(16, 8, 16), (256, 0, 128), (256, 128, 256), (256, 3, 251)])
+def test_kernel_model_on_a_distance_range_equals_the_xla_scan(window, d_lo, d_hi, budget):
+    """Kernel D over (d_lo, d_hi] (the sharded step's search) as the model runs it, tiles of 64."""
+    names, encs, want = _range_scan(window, d_lo, d_hi)
+    paths = {"chain": 0, "sweep": 0}
+    for i, e in enumerate(encs):
+        L, D, got = _kernel_model(e, d_hi, 64, budget, d_lo)
+        Lj, Dj = want[i]
+        assert np.array_equal(L, Lj[: len(e)]) and np.array_equal(D, Dj[: len(e)]), names[i]
+        assert (D[L > 0] > d_lo).all() and (D <= d_hi).all()
+        paths = {k: paths[k] + got[k] for k in paths}
+    assert paths["chain"]
+    if budget < KD["BUDGET"] and d_hi - d_lo >= 128:  # the zeros pass 48 steps in a range this wide
+        assert paths["sweep"]
 
 
 def test_kernel_model_takes_the_chain_path_on_the_corpus():
