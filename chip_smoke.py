@@ -13,6 +13,8 @@
     python3 chip_smoke.py --prepad   # kernel B alone: build, then time_prepad without the plain version
     python3 chip_smoke.py --paths    # phase 3 alone: the main paths and the streams, without traces
     python3 chip_smoke.py --cli      # the cli phase alone, after the default container and the wide window
+    python3 chip_smoke.py --runes    # the runes phase alone: wide kernels G and H, the rune streams
+    python3 chip_smoke.py --ci       # the ci phase alone: the port's CI benchmark page on the card
     python3 chip_smoke.py --cards    # several cards: the mesh, NCCL ranks under torchrun, the sharded step, the dry run
     python3 chip_smoke.py --step-rank R WORLD URL NPZ [--per-card]  # one rank of a sharded step (started by a phase)
 
@@ -84,6 +86,19 @@ result line:
    -benchmark -backend=device`` on CLI_BENCH_BYTES must print five lossless
    rows and launch D, E, G, H and I; one gzip container of CLI_HOST_BYTES
    (block by block through the engine) must round-trip;
+3b'. the runes phase (after the stream phase): wide kernels G and H (the
+   Huffman stream's rune alphabet) against their plain versions, exactly, at
+   three shapes: the stream of the corpus's kennedy.xls at scale 1.0, an
+   alphabet of RUNE_WIDE_DISTINCT code points (past kernel G's shared-memory
+   table, so its device-memory table runs) and the RUNE_EDGES rows; the
+   ``huffman`` device stream of kennedy.xls through ``compress_bytes`` and
+   ``decompress_bytes`` (launch counts from 0) equal to the port's oracle
+   copy and to its rune iteration, the RUNE_FAULT_RUNES stream (past the
+   oracle's 900,000-rune decode cap) round-tripping, no host split, and
+   the compress and decompress MB/s; the ci phase (after the cli phase):
+   ``write_ci_page`` (scripts/ci_bench_torch.sh) over the corpus at scale
+   0.05 on the card, every row's compressed bytes and lossless flag equal
+   to the host backend's, with each row's time;
 3c. the mesh phase: ``compress_container(data, ("lzss", "arithmetic"),
    mesh=data_mesh())`` (every card) must equal phase 3's default container
    and ``decompress_container(c, mesh=...)`` give the corpus back, over
@@ -171,7 +186,8 @@ kernel G on ``HENCODE_INPUTS`` (also each call followed by the host's read
 of byte_lens, as the container reads G's result) and ``--prepad`` for
 kernel B on ``PREPAD_INPUTS``, each with its device kernels' ms from the
 profiler; ``--cli`` runs phase 1, the default container, the WIDE_WINDOW
-container and the cli phase; ``--paths`` runs phase 1 and then
+container and the cli phase; ``--runes`` and ``--ci`` run phase 1 and then
+the runes or the ci phase; ``--paths`` runs phase 1 and then
 phase 3 without its traces and without the WIDE_WINDOW container (an
 earlier tree writes an aux table there). Copied into another checkout of the
 repository (an earlier commit, say), the script measures that tree's code
@@ -253,6 +269,24 @@ CLI_HOST_BYTES = 4 << 20
 # the raw streams timed on each backend (native, device, host)
 CLI_STREAMS = ("lzss", "arithmetic", "lzss,arithmetic")
 
+# The runes phase: the Huffman stream on inputs with bytes >= 0x80 (wide kernels G and H).
+# Invalid UTF-8 edge inputs, each a row of one batch: overlongs, surrogates, past U+10FFFF,
+# bytes that never lead, lone continuations, sequences cut at the end (each beside the valid
+# rune next to it); tests/test_torch_runes.py holds the port's rune decode against the
+# oracle's on each
+RUNE_EDGES = (
+    b"\xc0\x80", b"\xc1\xbf", b"\xe0\x80\x80", b"\xe0\x9f\xbf", b"\xf0\x80\x80\x80", b"\xf0\x8f\xbf\xbf",
+    b"\xed\xa0\x80", b"\xed\xbf\xbf", b"\xed\x9f\xbf",
+    b"\xf4\x90\x80\x80", b"\xf4\x8f\xbf\xbf",
+    b"\xf5\x80\x80\x80", b"\xf8\x88\x80\x80\x80", b"\xfe\xff", b"\xff",
+    b"\x80", b"\xbf\xbf", b"a\x80b\x80\x80\x80c",
+    b"\xc3", b"\xe2\x82", b"\xf0\x9f\x98", b"ab\xe2\x82",
+    "naïve € 中 😀".encode() + b"\xe2\x28\xa1\xf0\x28\x8c\x28\xc3",
+)
+RUNE_WIDE_DISTINCT = 100_000  # the runes phase's alphabet past kernel G's shared-memory table
+RUNE_FAULT_RUNES = 950_000  # runes of "abcdé€ñ中" from seed 0: past the oracle's 900,000-rune decode cap
+RUNE_FAULT_ALPHABET = "abcdé€ñ中"
+
 # the card's peaks for bound_ms: the H100 SXM data sheet's memory rate, and
 # its INT32 issue rate: 132 SMs x 64 INT32 lanes (Hopper architecture) at the
 # 1.98 GHz that the data sheet's 67 TFLOP/s float32 implies (132 SMs x 128
@@ -297,6 +331,15 @@ KERNELS = {
         "raisin_tpu_torch/csrc/arith_events.cu",
         "raisin_tpu/ops/arithmetic_pallas.py:58",
     ),
+    # kernels G and H widened to the Huffman stream's runes: the JAX stream's device encode and decode
+    "huffman_encode_wide": (
+        "raisin_tpu_torch/csrc/huffman_encode.cu",
+        "raisin_tpu/ops/huffman_jax.py:42",
+    ),
+    "huffman_decode_wide": (
+        "raisin_tpu_torch/csrc/huffman_decode.cu",
+        "raisin_tpu/ops/huffman_jax.py:61",
+    ),
 }
 
 
@@ -340,6 +383,21 @@ def edge_blocks(n_blocks: int = 128, size: int = 2048) -> list[bytes]:
         else:
             out.append((verse[int(rng.integers(0, 64)) :] * 2)[:n])
     return out
+
+
+def fault_stream() -> bytes:
+    """RUNE_FAULT_RUNES runes drawn from RUNE_FAULT_ALPHABET with seed 0, as UTF-8."""
+    alphabet = np.array(list(RUNE_FAULT_ALPHABET))
+    return "".join(alphabet[np.random.default_rng(0).integers(0, len(alphabet), RUNE_FAULT_RUNES)]).encode()
+
+
+def wide_alphabet_stream(distinct: int = RUNE_WIDE_DISTINCT, seed: int = 16) -> bytes:
+    """``distinct`` valid code points >= U+0080 drawn from ``seed``, each 1-19 times, shuffled, as UTF-8."""
+    rng = np.random.default_rng(seed)
+    pool = np.concatenate([np.arange(0x80, 0xD800), np.arange(0xE000, 0x110000)])
+    runes = np.repeat(rng.choice(pool, distinct, replace=False), rng.integers(1, 20, distinct))
+    rng.shuffle(runes)
+    return "".join(map(chr, runes.tolist())).encode()
 
 
 def padded(blocks: list[bytes]) -> tuple[np.ndarray, np.ndarray]:
@@ -1036,6 +1094,180 @@ def phase_stream(data: bytes, wrappers: dict, reset, card: str, dev, trace: bool
                   flush=True)
         print(f"phase trace stream {name}, ms under torch.profiler: " + json.dumps(trace), flush=True)
     return launches
+
+
+WIDE_KERNELS = ("huffman_encode_wide", "huffman_decode_wide")
+
+
+def wide_rows(rows: list[bytes], dev) -> tuple:
+    """Byte rows -> (ids (B, S) int32, lengths (B,) int32, the wide tables) of one tree over all their runes,
+    each rune counted as often as it occurs; the rune decode and the ids on the card."""
+    import torch
+
+    from raisin_tpu_torch.formats import huffman as hf
+    from raisin_tpu_torch.ops import huffman_blocks, runes
+
+    rs = [runes.decode(torch.from_numpy(np.frombuffer(r, np.uint8).copy()).to(dev)) for r in rows]
+    uniq, inv, counts = torch.unique(torch.cat(rs), sorted=True, return_inverse=True, return_counts=True)
+    tables = huffman_blocks.wide_tables(hf.build_tree(dict(zip(uniq.cpu().tolist(), counts.cpu().tolist()))))
+    lengths = torch.tensor([r.numel() for r in rs], dtype=torch.int32, device=dev)
+    ids = torch.full((len(rs), int(lengths.max())), -1, dtype=torch.int32, device=dev)
+    for b, part in enumerate(torch.split(inv.to(torch.int32), lengths.tolist())):
+        ids[b, : part.numel()] = part
+    return ids, lengths, tables
+
+
+def wide_vs_plain(ids, lengths, tables, dev, reps: int = 20) -> dict:
+    """Wide kernels G and H on one tree's id rows, each beside its plain version on the card (exact),
+    H giving back the ids; _result's keys for each, ms by CUDA events over ``reps`` launches."""
+    import torch
+
+    from raisin_tpu_torch.ops import huffman_rows
+
+    codes, lens = torch.from_numpy(tables.codes).to(dev), torch.from_numpy(tables.code_lens).to(dev)
+    bits = torch.where(ids >= 0, lens.to(torch.int64)[ids.clamp(min=0).to(torch.int64)], 0).sum(1)
+    capw = max(1, -(-int(bits.max()) // 32))
+    enc = (ids, lengths, codes, lens, capw)
+    got = huffman_rows.encode_rows_wide(*enc, bits=bits)
+    want, plain_g = plain_ms(lambda: huffman_rows._encode_rows_wide_torch(*enc))
+    ms_g = cuda_ms(lambda: huffman_rows.encode_rows_wide(*enc, bits=bits), reps)
+    rows, byte_lens, pads = got
+    children = torch.from_numpy(tables.children).to(dev)
+    dec = (rows, pads, byte_lens, children, tables.lattice, ids.shape[1])
+    out = huffman_rows.decode_rows_wide(*dec)
+    want_d, plain_h = plain_ms(lambda: huffman_rows._decode_rows_wide_torch(*dec[:4], dec[5]))
+    ms_h = cuda_ms(lambda: huffman_rows.decode_rows_wide(*dec), reps)
+    check(torch.equal(out[1], lengths) and bool(out[2].all()), "wide kernel H did not end every row at its length")
+    check(torch.equal(torch.where(ids >= 0, out[0], -1), ids), "wide kernel H did not give back the ids")
+    B, toks, K = ids.shape[0], float(lengths.to(torch.int64).sum()), len(tables.codes)
+    payload = float(byte_lens.to(torch.int64).sum())
+    # G: ids and the table in, payload out, per symbol a code load, a scan add, a shift and an OR;
+    # H: payload and child table in, ids out, a table step a symbol (as phase 4's bounds of G and H)
+    return {
+        "huffman_encode_wide": _result(max_abs_err(*zip(got, want)), ms_g, plain_g, 4 * toks + 8 * K + payload + 8 * B,
+                                       4 * toks),
+        "huffman_decode_wide": _result(max_abs_err(*zip(out, want_d)), ms_h, plain_h,
+                                       payload + 8 * (K - 1) + 4 * toks + 8 * B, 4 * toks),
+        "runes": int(toks), "distinct": K, "longest_code": int(tables.code_lens.max()), "rows": B,
+    }
+
+
+def phase_runes(wrappers: dict, reset, card: str, dev) -> tuple[dict, dict]:
+    """The runes phase: the Huffman stream's full rune alphabet on the card (wide kernels G and H).
+
+    Wide G and H against their plain versions (exact) at three shapes: the
+    stream of the corpus's kennedy.xls at scale 1.0 (B = 1), an alphabet of
+    RUNE_WIDE_DISTINCT code points, past kernel G's shared-memory table, and
+    the RUNE_EDGES rows of one tree. The main path, launch counts from 0:
+    ``compress_bytes``/``decompress_bytes`` of kennedy.xls through the
+    ``huffman`` device codec, equal to the port's oracle copy (compress) and
+    to its rune iteration in UTF-8 (decompress); the RUNE_FAULT_RUNES stream
+    round-trips; the host split stays 0; compress and decompress MB/s over
+    TIMED_RUNS. Returns (the main path's launches, the wide kernels' entries
+    of the kernel table).
+    """
+    import torch
+
+    import raisin_tpu_torch as rt
+    from raisin_tpu_torch.formats import huffman as hf
+    from raisin_tpu_torch.ops import huffman_blocks, huffman_rows
+    from raisin_tpu_torch.utils import corpus
+
+    kennedy = corpus.generate(1.0)["kennedy.xls"]
+    shapes = {"kennedy.xls stream": [kennedy], f"{RUNE_WIDE_DISTINCT} distinct runes": [wide_alphabet_stream()],
+              "invalid UTF-8 edges": list(RUNE_EDGES)}
+    per_shape = {}
+    for name, rows in shapes.items():
+        r = wide_vs_plain(*wide_rows(rows, dev), dev)
+        per_shape[name] = r
+        for k in WIDE_KERNELS:
+            check(r[k]["max_abs_err"] == 0, f"{k} differs from its plain version on {name} (err {r[k]['max_abs_err']})")
+        print(f"phase runes {name}: {r['rows']} rows, {r['runes']} runes, {r['distinct']} distinct, longest code "
+              f"{r['longest_code']} bits; wide G {r['huffman_encode_wide']['ms']:.4f} ms (plain "
+              f"{r['huffman_encode_wide']['plain_ms']:.1f}, bound {r['huffman_encode_wide']['bound_ms']:.4f}), "
+              f"wide H {r['huffman_decode_wide']['ms']:.4f} ms (plain {r['huffman_decode_wide']['plain_ms']:.1f}, "
+              f"bound {r['huffman_decode_wide']['bound_ms']:.4f}), max_abs_err 0, H gives back the ids", flush=True)
+    check(per_shape[f"{RUNE_WIDE_DISTINCT} distinct runes"]["distinct"] > huffman_rows.WIDE_TABLE,
+          "the wide alphabet fits kernel G's shared-memory table: its device-memory path did not run")
+
+    huffman_blocks.reset_host_split()
+    reset()
+    torch.cuda.synchronize()
+    c = rt.compress_bytes(kennedy, ["huffman"], backend="device", device=dev)
+    back = rt.decompress_bytes(c, ["huffman"], backend="device", device=dev)
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    check(all(launches[k] > 0 for k in WIDE_KERNELS), f"the rune stream did not launch wide G and H: {launches}")
+    check(c == hf.compress(kennedy), "the kennedy.xls stream differs from the oracle copy's")
+    check(back == b"".join(hf.rune_to_utf8(r) for r in hf.go_decode_runes(kennedy)),
+          "the kennedy.xls stream's decode differs from the oracle's runes")
+    fault = fault_stream()
+    check(rt.decompress_bytes(rt.compress_bytes(fault, ["huffman"], backend="device", device=dev), ["huffman"],
+                              backend="device", device=dev) == fault, "the 950,000-rune stream did not round-trip")
+    split = dict(huffman_blocks.host_split)
+    check(split == {"encode": 0, "decode": 0}, f"the rune streams took the host split: {split}")
+    rates = {}
+    for what, fn in (("compress", lambda: rt.compress_bytes(kennedy, ["huffman"], backend="device", device=dev)),
+                     ("decompress", lambda: rt.decompress_bytes(c, ["huffman"], backend="device", device=dev))):
+        times = []
+        for _ in range(TIMED_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        mbs = sorted(len(kennedy) / 1e6 / t for t in times)
+        rates[what] = {"median": float(np.median(mbs)), "min": mbs[0], "max": mbs[-1]}
+    print(f"phase runes stream: kennedy.xls ({len(kennedy)} B, {per_shape['kennedy.xls stream']['runes']} runes) "
+          f"-> {len(c)} B = the oracle copy's, decode = the oracle's runes; the {RUNE_FAULT_RUNES}-rune stream "
+          f"round-trips; host split {split}; launches {launches}; MB/s over {TIMED_RUNS} runs "
+          + json.dumps(rates) + f"; card {card}", flush=True)
+    main = per_shape["kennedy.xls stream"]
+    results = {k: {**main[k], "max_abs_err": max(r[k]["max_abs_err"] for r in per_shape.values()),
+                   "shapes": {n: r[k] for n, r in per_shape.items()}} for k in WIDE_KERNELS}
+    return launches, results
+
+
+def phase_ci(wrappers: dict, reset, card: str, dev) -> None:
+    """The ci phase: scripts/ci_bench_torch.sh's page (``write_ci_page``) over the corpus at scale 0.05
+    on the card; every row's compressed bytes and lossless flag equal the host backend's on the
+    same file and layers, and the Huffman rows launch wide G and H on the binary files."""
+    import contextlib
+    import io
+    import tempfile
+
+    import raisin_tpu_torch as rt
+    from raisin_tpu_torch.engine.benchmark import CI_ALGORITHMS, write_ci_page
+
+    with tempfile.TemporaryDirectory() as out:
+        reset()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):  # the page's tables; the rows are checked below
+            rows = write_ci_page(out, 0.05, dev)
+        seconds = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
+        names = sorted(os.listdir(os.path.join(out, "corpus")))
+        check(len(rows) == len(names) * len(CI_ALGORITHMS), f"the page has {len(rows)} rows")
+        per = len(CI_ALGORITHMS)
+        for f, name in enumerate(names):
+            with open(os.path.join(out, "corpus", name), "rb") as fh:
+                data = fh.read()
+            for row in rows[f * per : (f + 1) * per]:
+                layers = row["engine"].split(",")
+                try:
+                    c = rt.compress_bytes(data, layers, backend="host")
+                    lossless = rt.decompress_bytes(c, layers, backend="host") == data
+                except Exception as e:  # noqa: BLE001 - a failed row must fail on the host too
+                    check(row["failed"], f"{name} {row['engine']}: the host raises ({e}), the page's row did not")
+                    continue
+                check(not row["failed"] and (row["compressed_bytes"], row["lossless"]) == (len(c), lossless),
+                      f"{name} {row['engine']}: the page's row {row} differs from the host's ({len(c)}, {lossless})")
+        check(all(launches.get(k, 0) > 0 for k in ("lzss_match", "lzss_commit", "arith_events", "huffman_encode",
+                                                     "huffman_decode", *WIDE_KERNELS)),
+              f"the page did not launch every kernel of its paths: {launches}")
+    times = {f"{names[i // per]} {r['engine']}": r["time_taken"] for i, r in enumerate(rows)}
+    print(f"phase ci: write_ci_page at scale 0.05 on the card in {seconds:.1f} s, {len(rows)} rows equal to the "
+          f"host backend's bytes and lossless flags; launches {launches}; row times " + json.dumps(times, ensure_ascii=False)
+          + f"; card {card}", flush=True)
 
 
 def run_cli(argv: list[str]) -> tuple[int, str]:
@@ -2643,7 +2875,8 @@ def main() -> int:
     lz = {"lzss_match": lzss_match.find_matches, "lzss_commit": lzss_commit.commit_tokens,
           "lzss_decode": lzss_decode.walk_tokens}
     huff = {"huffman_encode": huffman_rows.encode_rows, "huffman_decode": huffman_rows.decode_rows}
-    every = {**arith, **lz, **huff, **events}
+    wide = {"huffman_encode_wide": huffman_rows.encode_rows_wide, "huffman_decode_wide": huffman_rows.decode_rows_wide}
+    every = {**arith, **lz, **huff, **events, **wide}
 
     def reset():
         for fn in every.values():
@@ -2701,6 +2934,13 @@ def main() -> int:
         walk = time_walk(bench.make_corpus(MAIN_BYTES), dev)
         print(json.dumps({"card": smi, "window": WINDOW, "lzss_decode": walk}))
         return 0
+    if sys.argv[1:] == ["--runes"]:  # the runes phase alone: wide G and H, the rune streams
+        launches_runes, wide_results = phase_runes(every, reset, card, dev)
+        print(json.dumps({"card": smi, "launches": launches_runes, **wide_results}))
+        return 0
+    if sys.argv[1:] == ["--ci"]:  # the ci phase alone: the port's CI benchmark page on the card
+        phase_ci(every, reset, card, dev)
+        return 0
     if sys.argv[1:] == ["--cards"]:  # every card of the machine: the mesh, NCCL ranks, the step, the dry run
         phase_cards(bench.make_corpus(MAIN_BYTES), smi)
         return 0
@@ -2754,7 +2994,9 @@ def main() -> int:
     phase_main(data, ("lzss",), lz, reset, card, dev)
     phase_wide_window(data, dev)
     launches_stream = phase_stream(data[:STREAM_BYTES], every, reset, card, dev)
+    launches_runes, wide_results = phase_runes(every, reset, card, dev)
     phase_cli(data, lz_container, every, reset, card, dev)
+    phase_ci(every, reset, card, dev)
     phase_mesh(data, lz_container, lz_rates, {**arith, **lz}, reset, card, dev)
     phase_two_ranks(data, card, dev)
     phase_entry(card, dev)
@@ -2773,6 +3015,7 @@ def main() -> int:
     results["arith_prepad"]["inputs"] = time_prepad(data, dev, plain=True)
     results.update(phase_timing_events(ar, data[:STREAM_BYTES], dev))
     results["arith_events"]["device_kernels_ms"] = passes
+    results.update(wide_results)
     for name, r in results.items():
         check(r["max_abs_err"] == 0, f"{name} differs from its plain version at the main path's shapes (err {r['max_abs_err']})")
         print(f"phase timing {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.1f} ms, "
@@ -2785,6 +3028,7 @@ def main() -> int:
     # I from the lzss,arithmetic stream's
     launches.update({name: launches_huff[name] for name in huff})
     launches["arith_events"] = launches_stream[",".join(LZ)]["arith_events"]
+    launches.update({name: launches_runes[name] for name in WIDE_KERNELS})  # the runes phase's main path
     table = {
         "kernels": [
             {

@@ -25,7 +25,8 @@ Flags:
     -blocksize=N           container block size in bytes (default 65536)
     -devices=N|auto        container mode: shard blocks over a 'data' mesh
                            of N (or all) cards; more than the machine has
-                           exits 1
+                           exits 1. Encode runs faster over several cards;
+                           decode does not yet run faster than on one
     -window=N              LZSS search window (default 4096; parity with
                            lz.NewWriterLevel, lzss.go:42). In container
                            mode this sets the speed/ratio tradeoff

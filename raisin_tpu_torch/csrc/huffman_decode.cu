@@ -48,6 +48,21 @@
 // memory (one padding word every 32, so that lanes SUB_BITS apart read
 // distinct banks); reads past the staged words go to device memory.
 //
+// The wide variant (rsn_huffman_decode_wide) decodes the Huffman stream's
+// rune alphabet: one tree of K leaves for every row, its (2 * (K - 1),)
+// int32 child table in device memory (children of internal nodes in
+// preorder, LEAF | id for a leaf, an id being the rune's rank in ascending
+// rune order), int32 ids out. K - 1 internal nodes for K up to ~1.1 M runes
+// need 21-bit references, so nothing of it fits the byte tables: a fourth
+// kernel, huffman_decode_kernel_lut, builds the LUT_BITS_WIDE table once a
+// call into the workspace (an entry depth << 24 | id, or an internal node
+// after LUT_BITS_WIDE bits), each CTA of the three passes copies it into
+// shared memory, and a code longer than LUT_BITS_WIDE bits goes on bit by
+// bit through the child table in device memory (L1 and L2). The caller
+// gives the code lattice (the gcd of the code lengths), which the byte
+// variant finds by a walk of its 127-node tree. Speculation, chain, repair
+// and write are the byte variant's; the write stores a word an id.
+//
 // What bounds it: each thread's chain from one code to the next, a table
 // load and a shift (~4.4 bits a code on the main path's token streams,
 // nearly all within LUT_BITS), and at the container's shape the issue slots
@@ -74,6 +89,11 @@ constexpr int STAGE_WORDS = SPAN_BITS / 32 + 16;  // the span's words, plus code
 constexpr int STAGE_SLOTS = STAGE_WORDS + STAGE_WORDS / 32 + 1;
 constexpr uint32_t DEAD = 0xFFFFFFFFu;  // the walk ended inside a code
 constexpr uint32_t FAR = 0x7FFFFFFFu;   // past every bit a span reads
+constexpr int LUT_BITS_WIDE = 11;       // bits a wide table step peeks
+constexpr int MAX_CODE_WIDE = 32;       // longest code of a wide tree (the stream raises above: ROADMAP item 18)
+constexpr int LUT_THREADS = 256;
+constexpr uint32_t LEAF = 0x80000000u;  // a wide child that is a leaf: LEAF | id
+constexpr uint32_t ID_MASK = 0xFFFFFFu; // a wide table entry: depth << 24 | id, or an internal node (depth 0)
 
 // A CTA's tables and staged words. Declared here and not behind pointers, so that
 // their loads are plain shared-memory loads with constant addresses.
@@ -81,6 +101,7 @@ __shared__ __align__(16) uint8_t child[4 * TABLE_WORDS];  // the packed child ta
 __shared__ uint16_t lut[1 << LUT_BITS];  // depth << 8 | symbol, or an internal node after LUT_BITS bits
 __shared__ uint32_t stage[STAGE_SLOTS];  // the span's words, byte-swapped, word k at slot k + k / 32
 __shared__ uint32_t exits[SPAN_SUBS];    // the repair's exits, a subsequence each
+__shared__ uint32_t lut_wide[1 << LUT_BITS_WIDE];  // the wide tree's table (huffman_decode_kernel_lut's)
 
 __device__ __forceinline__ uint32_t big_endian(uint32_t w) { return __byte_perm(w, 0, 0x0123); }
 
@@ -108,10 +129,14 @@ __device__ Span span_of(const uint8_t* payload, const int32_t* pads, const int32
 }
 
 // A span's decoder: its words, the first n of them staged (one padding slot every 32
-// words, so that lanes SUB_BITS apart read distinct banks), and the CTA's tables.
+// words, so that lanes SUB_BITS apart read distinct banks), and the CTA's tables
+// (with WIDE, lut_wide and the child table in device memory).
+template <bool W>
 struct Decoder {
+    static constexpr bool WIDE = W;
     Span sp;
     uint32_t n;
+    const uint32_t* children;  // the wide child table
 
     __device__ __forceinline__ uint32_t word(uint32_t k) const {
         if (k < n) return stage[k + (k >> 5)];
@@ -128,6 +153,17 @@ struct Decoder {
     // A code at span bit r with no leaf within LUT_BITS bits, from the node they reach, a
     // bit at a time: the bit after it and its symbol, or DEAD
     __device__ uint32_t long_code(uint32_t r, uint32_t node, uint32_t& sym) const {
+        if constexpr (WIDE) {
+            for (uint32_t d = LUT_BITS_WIDE;; ++d) {
+                if (d >= MAX_CODE_WIDE || r + d >= sp.nbits) return DEAD;
+                const uint32_t ch = __ldg(children + 2 * node + (uint32_t)(window(r + d) >> 63));
+                if (ch & LEAF) {
+                    sym = ch & ~LEAF;
+                    return r + d + 1;
+                }
+                node = ch;
+            }
+        }
         for (uint32_t d = LUT_BITS;; ++d) {
             if (d >= MAX_CODE || r + d >= sp.nbits) return DEAD;
             const uint32_t ch = child[2 * node + (uint32_t)(window(r + d) >> 63)];
@@ -147,7 +183,8 @@ struct Reader {
     uint32_t r, have, next, ahead;  // next: the index of the word after `ahead`
     unsigned long long buf;
 
-    __device__ __forceinline__ void start(const Decoder& dec, uint32_t at) {
+    template <class D>
+    __device__ __forceinline__ void start(const D& dec, uint32_t at) {
         const uint32_t w = at >> 5;
         r = at;
         buf = (((unsigned long long)dec.word(w) << 32) | dec.word(w + 1)) << (at & 31);
@@ -157,10 +194,17 @@ struct Reader {
     }
 
     // The code at r < dec.sp.nbits: r moves past it (to DEAD if it runs off), sym is its symbol
-    __device__ __forceinline__ void code(const Decoder& dec, uint32_t& sym) {
-        const uint32_t e = lut[buf >> (64 - LUT_BITS)];
-        const uint32_t len = e >> 8;
-        if (len == 0) {  // longer than LUT_BITS: the supply restarts after it
+    template <class D>
+    __device__ __forceinline__ void code(const D& dec, uint32_t& sym) {
+        uint32_t e, len;
+        if constexpr (D::WIDE) {
+            e = lut_wide[buf >> (64 - LUT_BITS_WIDE)];
+            len = e >> 24;
+        } else {
+            e = lut[buf >> (64 - LUT_BITS)];
+            len = e >> 8;
+        }
+        if (len == 0) {  // longer than the table's bits: the supply restarts after it
             const uint32_t q = dec.long_code(r, e, sym);
             if (q == DEAD) {
                 r = DEAD;
@@ -169,7 +213,7 @@ struct Reader {
             }
             return;
         }
-        sym = e & 0xFFu;
+        sym = e & (D::WIDE ? ID_MASK : 0xFFu);
         r = r + len <= dec.sp.nbits ? r + len : DEAD;
         buf <<= len;
         have -= len;
@@ -237,6 +281,23 @@ __device__ uint32_t build_tables(const int32_t* tables, int b, bool lattice) {
     return g;
 }
 
+// The wide tree's table, from huffman_decode_kernel_lut's copy in device memory
+__device__ void load_wide_table(const uint32_t* lut_g) {
+    for (int i = threadIdx.x; i < (1 << LUT_BITS_WIDE); i += blockDim.x) lut_wide[i] = __ldg(lut_g + i);
+    __syncthreads();
+}
+
+// The CTA's tables for block b; returns the code lattice (build_tables' for bytes, `given` for WIDE)
+template <bool WIDE>
+__device__ uint32_t tables_for(const int32_t* tables, const uint32_t* lut_g, int b, bool lattice, uint32_t given) {
+    if constexpr (WIDE) {
+        load_wide_table(lut_g);
+        return given;
+    } else {
+        return build_tables(tables, b, lattice);
+    }
+}
+
 // Span bit of the first multiple of the code lattice at or after block bit p (p itself without a lattice)
 __device__ __forceinline__ uint32_t on_lattice(const Span& sp, long long p, uint32_t lattice) {
     if (lattice > 1) p = (p + lattice - 1) / lattice * lattice;
@@ -244,7 +305,8 @@ __device__ __forceinline__ uint32_t on_lattice(const Span& sp, long long p, uint
 }
 
 // Stage the span's words (and a few past them) into shared memory
-__device__ void stage_span(Decoder& dec) {
+template <class D>
+__device__ void stage_span(D& dec) {
     dec.n = min((uint32_t)STAGE_WORDS, dec.sp.row_words);
 #pragma unroll 4
     for (uint32_t k = threadIdx.x; k < dec.n; k += blockDim.x) stage[k + (k >> 5)] = big_endian(__ldg(dec.sp.row + k));
@@ -258,7 +320,8 @@ struct Walk {
 
 // The walk from e_new over [.., end): in lockstep with the old walk w until the two
 // meet on a code boundary (from there the old walk stands), or to the end
-__device__ void rewalk(const Decoder& dec, uint32_t e_new, uint32_t end, Walk& w) {
+template <class D>
+__device__ void rewalk(const D& dec, uint32_t e_new, uint32_t end, Walk& w) {
     Reader p, q;
     p.start(dec, e_new);
     q.start(dec, w.e);
@@ -282,7 +345,8 @@ __device__ void rewalk(const Decoder& dec, uint32_t e_new, uint32_t end, Walk& w
 }
 
 // Inside a CTA: entries from the exits before them, the first from `first`, until none changes
-__device__ void repair_span(const Decoder& dec, uint32_t first, uint32_t end, bool real, Walk& w) {
+template <class D>
+__device__ void repair_span(const D& dec, uint32_t first, uint32_t end, bool real, Walk& w) {
     for (;;) {
         if (real) exits[threadIdx.x] = w.x;
         __syncthreads();
@@ -301,15 +365,17 @@ struct Workspace {
     int32_t* offset;
 };
 
+// WIDE: `tables` is the wide child table and lut_g its table (huffman_decode_kernel_lut's)
+template <bool WIDE>
 __global__ void __launch_bounds__(SPAN_SUBS)
 huffman_decode_kernel_spec(const uint8_t* __restrict__ payload, const int32_t* __restrict__ pads,
-                           const int32_t* __restrict__ byte_lens, const int32_t* __restrict__ tables, Workspace ws,
-                           int capb, int spans) {
+                           const int32_t* __restrict__ byte_lens, const int32_t* __restrict__ tables,
+                           const uint32_t* __restrict__ lut_g, Workspace ws, int capb, int spans, uint32_t given) {
     const int b = blockIdx.x / spans, c = blockIdx.x % spans;
     long long nbits;
-    Decoder dec = {span_of(payload, pads, byte_lens, b, capb, c, nbits), 0};
+    Decoder<WIDE> dec = {span_of(payload, pads, byte_lens, b, capb, c, nbits), 0, (const uint32_t*)tables};
     if (dec.sp.first >= nbits) return;
-    const uint32_t lattice = build_tables(tables, b, true);
+    const uint32_t lattice = tables_for<WIDE>(tables, lut_g, b, true, given);
     stage_span(dec);
     __syncthreads();
 
@@ -335,17 +401,19 @@ huffman_decode_kernel_spec(const uint8_t* __restrict__ payload, const int32_t* _
     ws.count[g] = real ? w.n : 0;
 }
 
+template <bool WIDE>
 __global__ void __launch_bounds__(SPAN_SUBS)
 huffman_decode_kernel_chain(const uint8_t* __restrict__ payload, const int32_t* __restrict__ pads,
-                            const int32_t* __restrict__ byte_lens, const int32_t* __restrict__ tables, Workspace ws,
-                            int32_t* __restrict__ counts, int32_t* __restrict__ ok, int capb, int spans) {
+                            const int32_t* __restrict__ byte_lens, const int32_t* __restrict__ tables,
+                            const uint32_t* __restrict__ lut_g, Workspace ws, int32_t* __restrict__ counts,
+                            int32_t* __restrict__ ok, int capb, int spans, uint32_t given) {
     __shared__ uint32_t warp_sums[SPAN_SUBS / 32];
     __shared__ uint32_t span_exit;
     const int b = blockIdx.x;
     long long nbits;
-    Decoder dec = {span_of(payload, pads, byte_lens, b, capb, 0, nbits), 0};
+    Decoder<WIDE> dec = {span_of(payload, pads, byte_lens, b, capb, 0, nbits), 0, (const uint32_t*)tables};
     const long long used = (nbits + SPAN_BITS - 1) / SPAN_BITS;  // spans holding bits
-    const uint32_t lattice = used > 1 ? build_tables(tables, b, true) : 0u;
+    const uint32_t lattice = used > 1 ? tables_for<WIDE>(tables, lut_g, b, true, given) : 0u;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     uint32_t true_exit = dec.sp.skew;  // in the bits of span c - 1, then of span c
     uint32_t base = 0;
@@ -398,15 +466,18 @@ huffman_decode_kernel_chain(const uint8_t* __restrict__ payload, const int32_t* 
     }
 }
 
+// rows: (B, cap) bytes, or int32 ids with WIDE
+template <bool WIDE>
 __global__ void __launch_bounds__(SPAN_SUBS)
 huffman_decode_kernel_write(const uint8_t* __restrict__ payload, const int32_t* __restrict__ pads,
-                            const int32_t* __restrict__ byte_lens, const int32_t* __restrict__ tables, Workspace ws,
-                            uint8_t* __restrict__ rows, int capb, int cap, int spans) {
+                            const int32_t* __restrict__ byte_lens, const int32_t* __restrict__ tables,
+                            const uint32_t* __restrict__ lut_g, Workspace ws, void* __restrict__ out, int capb,
+                            int cap, int spans) {
     const int b = blockIdx.x / spans, c = blockIdx.x % spans;
     long long nbits;
-    Decoder dec = {span_of(payload, pads, byte_lens, b, capb, c, nbits), 0};
+    Decoder<WIDE> dec = {span_of(payload, pads, byte_lens, b, capb, c, nbits), 0, (const uint32_t*)tables};
     if (dec.sp.first >= nbits) return;
-    build_tables(tables, b, false);
+    tables_for<WIDE>(tables, lut_g, b, false, 0);
     stage_span(dec);
     __syncthreads();
 
@@ -414,11 +485,20 @@ huffman_decode_kernel_write(const uint8_t* __restrict__ payload, const int32_t* 
     const size_t g = (size_t)blockIdx.x * SPAN_SUBS + threadIdx.x;
     const int off = ws.offset[g];
     const int stop = (int)min((long long)off + ws.count[g], (long long)cap);  // the row keeps what fits
-    const size_t row = (size_t)b * cap;  // the row's first byte; the rows start 16-byte aligned and zeroed
+    const size_t row = (size_t)b * cap;  // the row's first byte (id); the rows start 16-byte aligned and zeroed
     Reader rd;
     rd.start(dec, ws.entry[g]);
-    unsigned long long lo = 0, hi = 0;  // the 16 bytes of the current chunk of the rows
     uint32_t s = 0;
+    if constexpr (WIDE) {
+        int32_t* ids = (int32_t*)out + row;
+        for (int i = off; i < stop; ++i) {
+            rd.code(dec, s);
+            ids[i] = (int32_t)s;
+        }
+        return;
+    }
+    uint8_t* rows = (uint8_t*)out;
+    unsigned long long lo = 0, hi = 0;  // the 16 bytes of the current chunk of the rows
     for (int i = off; i < stop; ++i) {
         rd.code(dec, s);
         const size_t at = row + i;
@@ -443,6 +523,56 @@ huffman_decode_kernel_write(const uint8_t* __restrict__ payload, const int32_t* 
     }
 }
 
+// Wide: the LUT_BITS_WIDE table of the child table's tree, an entry a thread: a leaf within
+// LUT_BITS_WIDE bits as its depth << 24 | id, else the internal node those bits reach
+__global__ void __launch_bounds__(LUT_THREADS)
+huffman_decode_kernel_lut(const uint32_t* __restrict__ children, uint32_t* __restrict__ lut_g) {
+    const int i = blockIdx.x * LUT_THREADS + threadIdx.x;
+    uint32_t node = 0, ent = 0;
+    int d = 0;
+    for (; d < LUT_BITS_WIDE; ++d) {
+        const uint32_t ch = children[2 * node + ((i >> (LUT_BITS_WIDE - 1 - d)) & 1)];
+        if (ch & LEAF) {
+            ent = (uint32_t)(d + 1) << 24 | (ch & ~LEAF);
+            break;
+        }
+        node = ch;
+    }
+    lut_g[i] = d == LUT_BITS_WIDE ? node : ent;
+}
+
+template <bool WIDE>
+int launch_decode(const void* payload, const void* pads, const void* byte_lens, const void* tables, void* rows,
+                  void* counts, void* ok, void* workspace, int B, int capb, int cap, uint32_t lattice, void* stream) {
+    const cudaStream_t st = (cudaStream_t)stream;
+    const long long subs = (8LL * capb + SUB_BITS - 1) / SUB_BITS;
+    const int spans = (int)max(1LL, (subs + SPAN_SUBS - 1) / SPAN_SUBS);
+    const size_t n = (size_t)B * spans * SPAN_SUBS;
+    uint32_t* w = (uint32_t*)workspace;
+    const Workspace ws = {w, w + n, (int32_t*)(w + 2 * n), (int32_t*)(w + 3 * n)};
+    uint32_t* lut_g = w + 4 * n;  // WIDE: the table, after the subsequences' words
+    const auto* pl = (const uint8_t*)payload;
+    const auto *pd = (const int32_t*)pads, *bl = (const int32_t*)byte_lens, *tb = (const int32_t*)tables;
+    int rc;
+    if (WIDE) {
+        huffman_decode_kernel_lut<<<(1 << LUT_BITS_WIDE) / LUT_THREADS, LUT_THREADS, 0, st>>>((const uint32_t*)tables,
+                                                                                            lut_g);
+        rc = (int)cudaGetLastError();
+        if (rc != 0) return rc;
+    }
+    const auto spec = huffman_decode_kernel_spec<WIDE>;
+    const auto chain = huffman_decode_kernel_chain<WIDE>;
+    const auto write = huffman_decode_kernel_write<WIDE>;
+    spec<<<B * spans, SPAN_SUBS, 0, st>>>(pl, pd, bl, tb, lut_g, ws, capb, spans, lattice);
+    rc = (int)cudaGetLastError();
+    if (rc != 0) return rc;
+    chain<<<B, SPAN_SUBS, 0, st>>>(pl, pd, bl, tb, lut_g, ws, (int32_t*)counts, (int32_t*)ok, capb, spans, lattice);
+    rc = (int)cudaGetLastError();
+    if (rc != 0) return rc;
+    write<<<B * spans, SPAN_SUBS, 0, st>>>(pl, pd, bl, tb, lut_g, ws, rows, capb, cap, spans);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // The workspace holds 16 bytes for each of B * spans * SPAN_SUBS subsequences, where
@@ -450,22 +580,14 @@ huffman_decode_kernel_write(const uint8_t* __restrict__ payload, const int32_t* 
 extern "C" int rsn_huffman_decode(const void* payload, const void* pads, const void* byte_lens,
                                   const void* tables, void* rows, void* counts, void* ok, void* workspace, int B,
                                   int capb, int cap, void* stream) {
-    const cudaStream_t st = (cudaStream_t)stream;
-    const long long subs = (8LL * capb + SUB_BITS - 1) / SUB_BITS;
-    const int spans = (int)max(1LL, (subs + SPAN_SUBS - 1) / SPAN_SUBS);
-    const size_t n = (size_t)B * spans * SPAN_SUBS;
-    uint32_t* w = (uint32_t*)workspace;
-    const Workspace ws = {w, w + n, (int32_t*)(w + 2 * n), (int32_t*)(w + 3 * n)};
-    const auto* pl = (const uint8_t*)payload;
-    const auto *pd = (const int32_t*)pads, *bl = (const int32_t*)byte_lens, *tb = (const int32_t*)tables;
-    huffman_decode_kernel_spec<<<B * spans, SPAN_SUBS, 0, st>>>(pl, pd, bl, tb, ws, capb, spans);
-    int rc = (int)cudaGetLastError();
-    if (rc != 0) return rc;
-    huffman_decode_kernel_chain<<<B, SPAN_SUBS, 0, st>>>(pl, pd, bl, tb, ws, (int32_t*)counts, (int32_t*)ok, capb,
-                                                         spans);
-    rc = (int)cudaGetLastError();
-    if (rc != 0) return rc;
-    huffman_decode_kernel_write<<<B * spans, SPAN_SUBS, 0, st>>>(pl, pd, bl, tb, ws, (uint8_t*)rows, capb, cap,
-                                                                 spans);
-    return (int)cudaGetLastError();
+    return launch_decode<false>(payload, pads, byte_lens, tables, rows, counts, ok, workspace, B, capb, cap, 0, stream);
+}
+
+// children: the (2 * (K - 1),) int32 child table of every row's tree; rows: (B, cap) int32 ids; the
+// workspace holds rsn_huffman_decode's and 4 << LUT_BITS_WIDE bytes more; lattice: the gcd of the code lengths
+extern "C" int rsn_huffman_decode_wide(const void* payload, const void* pads, const void* byte_lens,
+                                       const void* children, void* rows, void* counts, void* ok, void* workspace,
+                                       int B, int capb, int cap, int lattice, void* stream) {
+    return launch_decode<true>(payload, pads, byte_lens, children, rows, counts, ok, workspace, B, capb, cap,
+                               (uint32_t)lattice, stream);
 }

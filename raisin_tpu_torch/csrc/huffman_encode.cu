@@ -46,6 +46,18 @@
 // the host oracle, as the JAX package does. Bit positions are 64-bit: a
 // block of 2^27 symbols of 32-bit codes passes 2^32 bits.
 //
+// The wide variant (rsn_huffman_encode_wide) codes the Huffman stream's
+// rune alphabet: the symbols are int32 ids (a rune's rank in ascending rune
+// order), PER_THREAD of them a thread in 16-byte loads of four, and one
+// table of K codes serves every row. Up to WIDE_TABLE entries the CTA holds
+// the table in shared memory as the byte variant does (codes as words,
+// lengths as bytes, 20 KiB); a larger one stays in device memory and every
+// lookup reads it through L1 and L2 (an alphabet of K runes takes 5 K bytes
+// there; the Unicode range, ~1.1 M runes, takes ~5.6 MB, inside the 50 MB
+// L2). An id outside 0..K-1 has no code. The rest (ticket, scan, look-back,
+// image, copy) is the byte variant's. One template serves the three tables'
+// homes, so the byte variant's code is the one it had.
+//
 // What bounds it: bytes, ~70 MB at the main path's shapes (the blocks read
 // once, the payload written once). What sets its pace on the H100 is
 // instructions, ~20 a symbol: two passes of table lookups, the window's
@@ -66,6 +78,11 @@ constexpr int IMAGE_WORDS = TILE;          // a tile's <= 32 * TILE bits
 constexpr int NSYM = 128;
 constexpr int TABLE = 256;                  // a byte's entry; those >= NSYM have no code
 constexpr uint8_t NO_CODE = 0x80;           // the byte that stands for a position past the block
+constexpr int WIDE_TABLE = 4096;            // a wide table's entries held in shared memory; more stay in device memory
+constexpr int MIN_CTAS_WIDE = 5;            // the wide variants' CTAs an SM (36 KiB of shared memory each)
+constexpr uint32_t NO_ID = 0xFFFFFFFFu;     // the id that stands for a position past the row
+// where the code table lives: the byte variant's per-block 256 entries, or a wide table of K entries
+enum TableHome { BYTES, WIDE_SHARED, WIDE_GLOBAL };
 constexpr unsigned FULL_MASK = 0xFFFFFFFFu;
 // a tile's status word: a flag in the top two bits, a bit count below them
 constexpr unsigned long long AGGREGATE = 1ull << 62;  // the tile's own bits
@@ -100,16 +117,43 @@ __device__ long long look_back(unsigned long long* block_status, int t, int lane
     }
 }
 
-__device__ __forceinline__ uint32_t symbol(const uint32_t* w, int k) { return (w[k >> 2] >> (8 * (k & 3))) & 0xFFu; }
+__host__ __device__ constexpr int symbol_bytes(int home) { return home == BYTES ? 1 : 4; }
+__host__ __device__ constexpr int symbol_words(int home) { return PER_THREAD * symbol_bytes(home) / 4; }
+__host__ __device__ constexpr int table_entries(int home) { return home == BYTES ? TABLE : home == WIDE_SHARED ? WIDE_TABLE : 1; }
 
-__global__ void __launch_bounds__(THREADS, MIN_CTAS)
-huffman_encode_kernel(const uint8_t* __restrict__ x, const int32_t* __restrict__ lengths,
+// symbol k of a thread's words: a byte of four to a word, or an id a word
+template <int HOME>
+__device__ __forceinline__ uint32_t symbol(const uint32_t* w, int k) {
+    if constexpr (HOME == BYTES) return (w[k >> 2] >> (8 * (k & 3))) & 0xFFu;
+    else return w[k];
+}
+
+// the code length of symbol c, and its code left-aligned in a word (0: no code)
+template <int HOME>
+__device__ __forceinline__ int length_of(uint32_t c, const uint8_t* len_of, const int32_t* code_lens, int K) {
+    if constexpr (HOME == BYTES) return len_of[c];
+    else if constexpr (HOME == WIDE_SHARED) return c < WIDE_TABLE ? len_of[c] : 0;
+    else return c < (uint32_t)K ? min(max(__ldg(code_lens + c), 0), 32) : 0;
+}
+
+template <int HOME>
+__device__ __forceinline__ uint32_t code_of_symbol(uint32_t c, int len, const uint32_t* code_of,
+                                                   const int32_t* codes) {
+    if constexpr (HOME == WIDE_GLOBAL) return len ? (uint32_t)__ldg(codes + c) << (32 - len) : 0u;
+    else return HOME == BYTES || c < WIDE_TABLE ? code_of[c] : 0u;
+}
+
+// HOME == BYTES: x holds bytes and codes / code_lens 128 entries a block; otherwise x holds int32
+// ids and codes / code_lens K entries for every row
+template <int HOME>
+__global__ void __launch_bounds__(THREADS, HOME == BYTES ? MIN_CTAS : MIN_CTAS_WIDE)
+huffman_encode_kernel(const void* __restrict__ x, const int32_t* __restrict__ lengths,
                       const int32_t* __restrict__ codes, const int32_t* __restrict__ code_lens,
                       const long long* __restrict__ bits, uint32_t* rows, int32_t* __restrict__ byte_lens,
                       int32_t* __restrict__ pads, long long* __restrict__ totals,
-                      unsigned long long* status, unsigned* ticket, int S, int capw, int tiles) {
-    __shared__ uint32_t code_of[TABLE];  // each byte's code, left-aligned in its word (0: no code)
-    __shared__ uint8_t len_of[TABLE];    // and its length
+                      unsigned long long* status, unsigned* ticket, int S, int capw, int tiles, int K) {
+    __shared__ uint32_t code_of[table_entries(HOME)];  // each symbol's code, left-aligned in its word (0: no code)
+    __shared__ uint8_t len_of[table_entries(HOME)];    // and its length
     __shared__ uint32_t image[IMAGE_WORDS];
     __shared__ int warp_bits[WARPS];
     __shared__ int tile_id;
@@ -126,20 +170,20 @@ huffman_encode_kernel(const uint8_t* __restrict__ x, const int32_t* __restrict__
     const int last = n > 0 ? (int)((n - 1) / TILE) : 0;  // the block's last tile with symbols
     if (t > last) return;  // past the block: no tile waits on this one
 
-    // this thread's PER_THREAD symbols, four to a word, little-endian
+    // this thread's PER_THREAD symbols: bytes four to a word, little-endian, or an id a word
     const long long i0 = (long long)t * TILE + tid * PER_THREAD;
-    const uint8_t* src = x + (size_t)b * S + i0;
-    uint32_t w[PER_THREAD / 4];
+    const uint8_t* src = (const uint8_t*)x + ((size_t)b * S + i0) * symbol_bytes(HOME);
+    uint32_t w[symbol_words(HOME)];
     if (i0 + PER_THREAD <= n && ((uintptr_t)src & 15) == 0) {
 #pragma unroll
-        for (int q = 0; q < PER_THREAD / 16; ++q) {
+        for (int q = 0; q < symbol_words(HOME) / 4; ++q) {
             const uint4 v = reinterpret_cast<const uint4*>(src)[q];
             w[4 * q] = v.x;
             w[4 * q + 1] = v.y;
             w[4 * q + 2] = v.z;
             w[4 * q + 3] = v.w;
         }
-    } else {
+    } else if constexpr (HOME == BYTES) {
 #pragma unroll
         for (int q = 0; q < PER_THREAD / 4; ++q) {
             uint32_t word = 0;
@@ -150,17 +194,28 @@ huffman_encode_kernel(const uint8_t* __restrict__ x, const int32_t* __restrict__
             }
             w[q] = word;
         }
+    } else {
+#pragma unroll
+        for (int k = 0; k < PER_THREAD; ++k) w[k] = i0 + k < n ? reinterpret_cast<const uint32_t*>(src)[k] : NO_ID;
     }
-    for (int i = tid; i < TABLE; i += THREADS) {
-        const int len = i < NSYM ? min(max(code_lens[b * NSYM + i], 0), 32) : 0;
-        code_of[i] = len ? (uint32_t)codes[b * NSYM + i] << (32 - len) : 0u;
-        len_of[i] = (uint8_t)len;
+    if constexpr (HOME == BYTES) {
+        for (int i = tid; i < TABLE; i += THREADS) {
+            const int len = i < NSYM ? min(max(code_lens[b * NSYM + i], 0), 32) : 0;
+            code_of[i] = len ? (uint32_t)codes[b * NSYM + i] << (32 - len) : 0u;
+            len_of[i] = (uint8_t)len;
+        }
+    } else if constexpr (HOME == WIDE_SHARED) {
+        for (int i = tid; i < WIDE_TABLE; i += THREADS) {
+            const int len = i < K ? min(max(code_lens[i], 0), 32) : 0;
+            code_of[i] = len ? (uint32_t)codes[i] << (32 - len) : 0u;
+            len_of[i] = (uint8_t)len;
+        }
     }
     __syncthreads();
 
     int mine = 0;
 #pragma unroll
-    for (int k = 0; k < PER_THREAD; ++k) mine += len_of[symbol(w, k)];
+    for (int k = 0; k < PER_THREAD; ++k) mine += length_of<HOME>(symbol<HOME>(w, k), len_of, code_lens, K);
     // the tile's scan of the threads' bit counts
     int incl = mine;
     for (int o = 1; o < 32; o <<= 1) {
@@ -213,9 +268,10 @@ huffman_encode_kernel(const uint8_t* __restrict__ x, const int32_t* __restrict__
         unsigned long long acc = 0;  // the window, its first bit the most significant
 #pragma unroll
         for (int k = 0; k < PER_THREAD; ++k) {
-            const uint32_t c = symbol(w, k);
-            acc |= ((unsigned long long)code_of[c] << 32) >> fill;
-            fill += len_of[c];
+            const uint32_t c = symbol<HOME>(w, k);
+            const int len = length_of<HOME>(c, len_of, code_lens, K);
+            acc |= ((unsigned long long)code_of_symbol<HOME>(c, len, code_of, codes) << 32) >> fill;
+            fill += len;
             if (fill >= 32) {
                 const uint32_t word = (uint32_t)(acc >> 32);
                 if (owned) image[wi] = word;
@@ -252,20 +308,42 @@ huffman_encode_kernel(const uint8_t* __restrict__ x, const int32_t* __restrict__
     }
 }
 
-}  // namespace
-
-extern "C" int rsn_huffman_encode(const void* x, const void* lengths, const void* codes,
-                                  const void* code_lens, const void* bits, void* rows,
-                                  void* byte_lens, void* pads, void* totals, void* work, int B,
-                                  int S, int capw, void* stream) {
+template <int HOME>
+int launch_encode(const void* x, const void* lengths, const void* codes, const void* code_lens, const void* bits,
+                  void* rows, void* byte_lens, void* pads, void* totals, void* work, int B, int S, int capw, int K,
+                  void* stream) {
     // work: a zeroed status word for each of the B * tiles tiles, then a word
     // of two counts: the ticket, and the blocks whose total differs from bits
     const int tiles = S > 0 ? (S + TILE - 1) / TILE : 1;
     const long long grid = (long long)B * tiles;
     unsigned long long* status = (unsigned long long*)work;
-    huffman_encode_kernel<<<(unsigned)grid, THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)x, (const int32_t*)lengths, (const int32_t*)codes,
+    const auto kernel = huffman_encode_kernel<HOME>;
+    kernel<<<(unsigned)grid, THREADS, 0, (cudaStream_t)stream>>>(
+        x, (const int32_t*)lengths, (const int32_t*)codes,
         (const int32_t*)code_lens, (const long long*)bits, (uint32_t*)rows, (int32_t*)byte_lens,
-        (int32_t*)pads, (long long*)totals, status, (unsigned*)(status + grid), S, capw, tiles);
+        (int32_t*)pads, (long long*)totals, status, (unsigned*)(status + grid), S, capw, tiles, K);
     return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// x: (B, S) bytes; codes, code_lens: (B, 128) int32
+extern "C" int rsn_huffman_encode(const void* x, const void* lengths, const void* codes,
+                                  const void* code_lens, const void* bits, void* rows,
+                                  void* byte_lens, void* pads, void* totals, void* work, int B,
+                                  int S, int capw, void* stream) {
+    return launch_encode<BYTES>(x, lengths, codes, code_lens, bits, rows, byte_lens, pads, totals, work, B, S, capw,
+                                NSYM, stream);
+}
+
+// x: (B, S) int32 ids; codes, code_lens: (K,) int32 for every row
+extern "C" int rsn_huffman_encode_wide(const void* x, const void* lengths, const void* codes,
+                                       const void* code_lens, const void* bits, void* rows,
+                                       void* byte_lens, void* pads, void* totals, void* work, int B,
+                                       int S, int capw, int K, void* stream) {
+    if (K <= WIDE_TABLE)
+        return launch_encode<WIDE_SHARED>(x, lengths, codes, code_lens, bits, rows, byte_lens, pads, totals, work, B,
+                                          S, capw, K, stream);
+    return launch_encode<WIDE_GLOBAL>(x, lengths, codes, code_lens, bits, rows, byte_lens, pads, totals, work, B, S,
+                                      capw, K, stream);
 }

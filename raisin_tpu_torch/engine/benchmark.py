@@ -21,13 +21,16 @@ compressed-stream entropy is additionally available via
 from __future__ import annotations
 
 import html as _html
+import json
 import math
+import os
 import threading
 import time
 from dataclasses import dataclass
 
 from raisin_tpu_torch.engine.core import compress_bytes, decompress_bytes
 from raisin_tpu_torch.engine.templates import render_benchmark_page
+from raisin_tpu_torch.utils.corpus import write_corpus
 from raisin_tpu_torch.utils.misc import byte_count_si
 
 SUITE_TIMEOUT_SECONDS = 60.0
@@ -300,3 +303,45 @@ def benchmark_suite(
     if generate_html:
         return render_benchmark_page("".join(html_parts)), all_results
     return "", all_results
+
+
+# ---------------------------------------------------------------------------
+# The CI benchmark page (scripts/ci_bench_torch.sh)
+
+# the reference CI's algorithm list (.travis.yml:19, as scripts/ci_bench.sh:43-46 gives it), each entry
+# a list of layers: ci_bench.sh passes the single algorithms as bare strings, which benchmark_suite
+# splits into letters (ROADMAP Queue 3)
+CI_ALGORITHMS = [
+    ["lzss"], ["dmc"], ["huffman"], ["flate"], ["gzip"], ["lzw"], ["zlib"], ["arithmetic"],
+    ["lzss", "huffman"], ["lzss", "arithmetic"], ["arithmetic", "huffman"],
+]
+
+
+def write_ci_page(out: str, scale: float = 0.05, device=None) -> list[dict]:
+    """The counterpart of scripts/ci_bench.sh's page on the port, on ``device`` (None: the card).
+
+    Writes the Canterbury-shaped corpus at ``scale`` into ``out/corpus``,
+    runs :func:`benchmark_suite` over it with :data:`CI_ALGORITHMS`, and
+    writes ``out/index.html`` and ``out/results.json`` (one row a file and
+    algorithm, in the JAX script's fields); returns the rows.
+    """
+    files = write_corpus(os.path.join(out, "corpus"), scale=scale)
+    html, results = benchmark_suite(files, CI_ALGORITHMS, generate_html=True, device=device)
+    with open(os.path.join(out, "index.html"), "w") as f:
+        f.write(html)
+    rows = [
+        {
+            "engine": r.compression_engine,
+            "time_taken": r.time_taken,
+            "compression_ratio": r.ratio,
+            "entropy": r.entropy,
+            "lossless": r.lossless,
+            "failed": r.failed,
+            "original_bytes": r.original_bytes,
+            "compressed_bytes": r.compressed_bytes,
+        }
+        for r in results
+    ]
+    with open(os.path.join(out, "results.json"), "w") as f:
+        json.dump(rows, f, indent=1)
+    return rows

@@ -9,7 +9,9 @@ The counterpart of raisin_tpu/engine/registry.py, with the same names
   ``arithmetic``, ``mcc`` and ``dmc``, built on its first call;
 - ``device`` — the card's single-stream codecs (``ops/arithmetic_scan.py``,
   ``ops/lzss_stream.py``, ``ops/huffman_stream.py``), registered below as
-  raisin_tpu/ops/dispatch.py registers the JAX package's;
+  raisin_tpu/ops/dispatch.py registers the JAX package's; the Huffman one
+  codes any rune on the card (wide kernels G and H past ASCII), as the JAX
+  package's device stream does, with no 900,000-symbol decode cap;
 - ``host``   — the port's copies of the host oracles (``formats/``), for
   every codec.
 
@@ -33,7 +35,11 @@ under auto: ``lzss`` 424 / 132, ``arithmetic`` 9.8 / 11.7,
 (65535, ROADMAP Queue 1 item 16) takes ``native``; a ``device`` asked
 for by name raises ValueError there. A failed native build or kernel
 launch raises; nothing turns it into a warning or a fall to the next
-backend (the JAX package's ``_register_optional_backends`` does).
+backend (the JAX package's ``_register_optional_backends`` does). Since
+``huffman`` has no native codec, ``decompress_bytes(c, ["huffman"])`` of a
+stream of more than 900,000 symbols gives the bytes back on the card,
+where the JAX package's auto order takes the host oracle, which raises
+its parity cap (ROADMAP Queue 3, kept on purpose).
 """
 
 from __future__ import annotations

@@ -48,6 +48,8 @@ SIGNATURES = {
     "rsn_lzss_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "rsn_huffman_encode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "rsn_huffman_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "rsn_huffman_encode_wide": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "rsn_huffman_decode_wide": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 

@@ -19,10 +19,13 @@ byte runs on the card, all blocks of a batch in one launch: kernel G
   card from the container's body; the pad byte gives the start bit.
 
 Blocks with a byte >= 0x80 (trees with a non-ASCII symbol on decode) take
-the format's own split, as in the JAX package: Go's rune iteration differs
-from byte iteration there (huffman.go:306-310), so the port's copy of the
-host oracle codes them whole. ``host_split`` counts them; the bench corpus
-has none. Everything else decodes or raises as
+the format's own split, as in the JAX package, whose container gates its
+device path to ASCII blocks (raisin_tpu/ops/huffman_blocks.py:18-22): Go's
+rune iteration differs from byte iteration there (huffman.go:306-310), so
+the port's copy of the host oracle codes them whole. ``host_split`` counts
+them; the bench corpus has none. The single stream
+(``ops/huffman_stream.py``) never takes the split: it codes runes with
+:func:`wide_tables` and the wide kernels G and H. Everything else decodes or raises as
 ``raisin_tpu.ops.huffman_blocks`` does: an empty block raises the oracle's
 error, a single-symbol tree (zero-length code) the oracle's "not
 decodable", a header the oracle cannot read the oracle's message, and a
@@ -37,6 +40,9 @@ Each stage runs in its own ``record_function`` range: ``rsnb.enc.count``,
 """
 
 from __future__ import annotations
+
+import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -96,6 +102,65 @@ def packed_table(tree) -> np.ndarray | None:
         if parent >= 0:
             words[parent // 2] |= ref << (16 * (parent % 2) + 8 * side)
     return np.array(words, dtype=np.uint32).view(np.int32)
+
+
+class WideTables(NamedTuple):
+    """A tree's tables for the wide kernels, its leaves as ids: an id is the rank of the leaf's rune in
+    ascending rune order, which is the header's order (``formats/huffman.build_header``)."""
+
+    vals: np.ndarray  # (K,) int64, the runes in ascending order: id -> rune
+    codes: np.ndarray  # (K,) int32, each id's code in its low bits, first bit most significant
+    code_lens: np.ndarray  # (K,) int32
+    children: np.ndarray  # (2 * (K - 1),) int32: internal nodes in preorder (root 0), LEAF | id for a leaf
+    lattice: int  # the greatest common divisor of the code lengths (0 for a single leaf)
+
+
+def wide_tables(tree) -> WideTables:
+    """The code table and child table of a tree whose leaves are runes (kernels G and H, wide).
+
+    Raises the item-18 ValueError for a code past 32 bits, as
+    :func:`code_tables` does.
+    """
+    values, codes, depths = [], [], []
+    children: list[int] = []
+    leaf_slots: list[tuple[int, int]] = []  # (slot in children, index into values)
+    stack = [(tree, -1, 0, 0)]  # (subtree, slot its reference goes to, code, depth) in preorder
+    while stack:
+        t, slot, code, depth = stack.pop()
+        if isinstance(t, hf.Leaf):
+            if slot >= 0:
+                leaf_slots.append((slot, len(values)))
+            values.append(t.value)
+            codes.append(code)
+            depths.append(depth)
+            continue
+        node = len(children) // 2
+        if slot >= 0:
+            children[slot] = node
+        children += [0, 0]
+        stack.append((t.right, 2 * node + 1, 2 * code + 1, depth + 1))
+        stack.append((t.left, 2 * node, 2 * code, depth + 1))
+    longest = max(depths)
+    if longest > huffman_rows.MAX_CODE_BITS:
+        raise ValueError(
+            f"huffman: the stream needs a {longest}-bit code; codes past "
+            f"{huffman_rows.MAX_CODE_BITS} bits come with ROADMAP Queue 1 item 18"
+        )
+    vals = np.array(values, dtype=np.int64)
+    order = np.argsort(vals, kind="stable")
+    rank = np.empty_like(order)
+    rank[order] = np.arange(len(order))
+    table = np.array(children, dtype=np.int64)
+    if leaf_slots:
+        slots, leaves = np.array(leaf_slots, dtype=np.int64).T
+        table[slots] = huffman_rows.LEAF | rank[leaves]
+    return WideTables(
+        vals[order],
+        np.array(codes, dtype=np.uint32)[order].view(np.int32),
+        np.array(depths, dtype=np.int32)[order],
+        table.astype(np.uint32).view(np.int32),
+        math.gcd(*depths),
+    )
 
 
 # ---------------------------------------------------------------------------
