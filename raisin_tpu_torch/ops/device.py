@@ -20,17 +20,44 @@ that sizes a buffer), ``sync.any`` (whether a batch needs a slower path),
 ``copy.pin`` (a pinned buffer's allocation) and ``copy.bytes`` (the copy
 into the returned ``bytes``). A range costs about ten microseconds of host
 time outside a profiler and about sixteen inside one.
+
+:func:`to_bytes` makes the returned ``bytes`` without holding the
+interpreter lock while it copies: a fresh copy of tens of MiB spends tens of
+milliseconds in first-touch page faults, and a copy that held the lock would
+keep every other host thread (another client, a card's range) from launching
+or reading back meanwhile. Large buffers are copied in contiguous pieces over
+a small pool of host threads. :data:`copies` counts how each copy went.
 """
 
 from __future__ import annotations
 
+import ctypes
+import os
 import threading
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 from torch.profiler import record_function
 
+from raisin_tpu_torch.ops import _build
+
 _waits = threading.local()
+
+PIECE_MIN = 4 << 20  # a piece of a split copy holds at least this many bytes
+MAX_PIECES = 4
+
+# both hold the interpreter lock (ctypes.pythonapi); the fill, ctypes.memmove, releases it
+_new_bytes = ctypes.pythonapi.PyBytes_FromStringAndSize
+_new_bytes.argtypes = (ctypes.c_void_p, ctypes.c_ssize_t)
+_new_bytes.restype = ctypes.py_object
+_bytes_address = ctypes.pythonapi.PyBytes_AsString
+_bytes_address.argtypes = (ctypes.py_object,)
+_bytes_address.restype = ctypes.c_void_p
+
+copies = {"whole": 0, "split": 0, "pieces": 0}
+_pool: ThreadPoolExecutor | None = None
+_pool_lock = threading.Lock()
 
 
 def resolve_device(device: torch.device | str | None = None) -> torch.device:
@@ -90,4 +117,65 @@ def d2h(t: torch.Tensor) -> bytes:
             host.copy_(t)
         t = host
     with record_function("copy.bytes"):
-        return t.numpy().tobytes()
+        return to_bytes(t)
+
+
+def copy_pieces(n: int) -> int:
+    """The number of pieces :func:`to_bytes` splits an ``n``-byte copy into: each at least
+    :data:`PIECE_MIN` bytes, at most :data:`MAX_PIECES`, and at most half the host's cores."""
+    if n < 2 * PIECE_MIN:  # os.cpu_count() reads a file: tens of microseconds on some hosts
+        return 1
+    return max(1, min(MAX_PIECES, (os.cpu_count() or 1) // 2, n // PIECE_MIN))
+
+
+def to_bytes(host: torch.Tensor) -> bytes:
+    """A CPU tensor's bytes (``host.numpy().tobytes()``), copied without the interpreter lock.
+
+    The ``bytes`` is allocated uninitialised and filled by ``ctypes.memmove``, which releases the
+    lock; a copy of :func:`copy_pieces` > 1 pieces runs the first on the calling thread and the
+    others on a pool made at the first such copy. It returns once every piece has landed.
+    """
+    if host.device.type != "cpu":
+        raise ValueError(f"to_bytes: a CPU tensor, not one on {host.device}")
+    host = host.contiguous()
+    n = host.numel() * host.element_size()
+    k = copy_pieces(n)
+    if n == 0:
+        out = b""
+    else:
+        out = _new_bytes(None, n)
+        dst, src = _bytes_address(out), host.data_ptr()
+        step = -(-n // k)
+        pieces = [_copier().submit(ctypes.memmove, dst + a, src + a, min(step, n - a))
+                  for a in range(step, n, step)]
+        ctypes.memmove(dst, src, step)
+        for piece in pieces:
+            piece.result()
+    if k == 1:
+        _build.count(copies, "whole")
+    else:
+        _build.count(copies, "split")
+        _build.count(copies, "pieces", k)
+    return out
+
+
+def reset_copy_counts() -> None:
+    for key in copies:
+        copies[key] = 0
+
+
+def _copier() -> ThreadPoolExecutor:
+    global _pool
+    with _pool_lock:
+        if _pool is None:
+            _pool = ThreadPoolExecutor(MAX_PIECES - 1, thread_name_prefix="to_bytes")
+        return _pool
+
+
+def _forget_pool() -> None:
+    """A forked child has none of its parent's pool threads: it makes a pool of its own."""
+    global _pool, _pool_lock
+    _pool, _pool_lock = None, threading.Lock()
+
+
+os.register_at_fork(after_in_child=_forget_pool)

@@ -64,7 +64,7 @@ from torch.profiler import record_function
 from raisin_tpu_torch.ops import arithmetic_rows, escape, huffman_blocks, lzss_decode, lzss_match, pipeline
 from raisin_tpu_torch.ops.device import d2h as _d2h
 from raisin_tpu_torch.ops.device import h2d as _h2d
-from raisin_tpu_torch.ops.device import resolve_device, sync
+from raisin_tpu_torch.ops.device import resolve_device, sync, to_bytes
 from raisin_tpu_torch.parallel.mesh import Mesh, block_range
 
 MAGIC = b"RSNB"
@@ -629,4 +629,4 @@ def _decompress_container(data: bytes, devices: list[torch.device]) -> bytes:
     if done != orig_size:
         raise ValueError(f"container: decoded {done} bytes, expected {orig_size}")
     with record_function("copy.bytes"):
-        return out.numpy().tobytes()
+        return to_bytes(out)
