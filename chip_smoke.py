@@ -252,7 +252,9 @@ LZ = ("lzss", "arithmetic")
 # The same for ("lzss", "huffman") at window 4096: block index -> (sha256 of
 # the input block, token-stream length, payload length, sha256 of the
 # payload of raisin_tpu.formats.huffman_ref.compress(lzss_ref.compress(
-# block, 4096))); tests/test_torch_huffman_container.py recomputes them.
+# block, 4096)) with the oracle's heap held to Go's rule, the port's tree;
+# these four blocks' trees are the same under the unpatched oracle);
+# tests/test_torch_huffman_container.py recomputes them.
 ORACLE_BLOCKS_HUFF = {
     0: ("9de9388755bcc78e3ceb1a7319b3403d", 44035, 24027, "329d93bf4d7db38169e707683e78181c"),
     341: ("3be9ca082e2c2bbbcf62566eb1ce58df", 44012, 24002, "6a60e9a1b3ce9adb90be9537a456cc9a"),
@@ -300,8 +302,9 @@ RUNE_FAULT_ALPHABET = "abcdé€ñ中"
 # The longcodes phase: Huffman stream codes past 32 bits. fibonacci_block(LONGCODE_SYMBOLS) (its longest
 # code has 33 bits) and its rune variant (fibonacci_runes) through the huffman device stream: name ->
 # (sha256 of the input, output length, sha256 of the output of
-# raisin_tpu.formats.huffman_ref.compress), first 32 hex digits each; tests/test_torch_long_codes.py
-# recomputes them with the oracle
+# raisin_tpu.formats.huffman_ref.compress with its heap held to Go's rule, the port's tree; the same
+# under the unpatched oracle), first 32 hex digits each; tests/test_torch_long_codes.py recomputes
+# them with the oracle
 LONGCODE_SYMBOLS = 34
 ORACLE_LONGCODE = {
     "ascii": ("40d5b2f4d39e74f74939ec75cef5930a", 4886218, "d1e66c9485ddd7f9e942a5c47339a145"),

@@ -3,10 +3,26 @@
 A copy of raisin_tpu/formats/huffman_ref.py (the port imports nothing of
 the JAX package): Go's rune iteration, the tree build with Go's
 container/heap mechanics, the code walk, the header and the per-stream
-compress/decompress, with the same error messages. The container uses
-``build_tree``/``print_codes``/``build_header``/``parse_header`` per block
-and ``compress``/``decompress`` for the blocks that the card does not take
-(non-ASCII ones).
+compress/decompress, with the same error messages. One departure: the
+heap's sift-up stops at the root as Go's does, where the JAX package's
+copy compares the root with the last item (``_GoTreeHeap._up``), so the
+trees, and the bytes, differ wherever that comparison swaps them. The
+container uses ``build_tree``/``print_codes``/``build_header``/
+``read_header`` per block and ``compress_block``/``decompress_block`` for
+the blocks that the card does not take.
+
+The container's blocks (``compress_block``) add a second departure, a
+lossless one. Go's rune iteration gives back a block's bytes exactly where
+they are valid UTF-8; elsewhere it turns every stray byte into U+FFFD and
+Go's own stream decodes to other bytes (an ``lzss,huffman`` block of text
+with a ``<``, which the LZSS escape writes as 0xFF, for one). Such a block
+is coded over its bytes in the same layout: the header's symbols are the
+raw bytes, in ascending order, and the tree is built from their counts as
+Go builds it from runes'. A byte >= 0x80 in a header is then followed by
+an ASCII byte, so it begins no valid UTF-8 sequence, which Go never writes
+there: ``read_header`` tells the two kinds apart by that alone. Where a
+block holds one such byte value beside ASCII (the escaped ``<``), its tree,
+codes and bits are Go's, and only that symbol's header bytes differ.
 
 Format (reference compressor/huffman/huffman.go):
 
@@ -29,7 +45,8 @@ Format (reference compressor/huffman/huffman.go):
   is produced by (a) pairing symbols in ascending (freq, rune) order
   (huffman.go:58-91) and (b) Go's ``container/heap`` pop/push mechanics, whose
   tie-breaking is algorithmic, not value-based. ``_GoTreeHeap`` below
-  replicates Go's sift-up/sift-down exactly so codes match bit-for-bit.
+  follows Go's sift-up/sift-down (container/heap ``up``/``down``) step for
+  step, so codes match the reference's bit for bit.
 """
 
 from __future__ import annotations
@@ -107,7 +124,7 @@ def rune_to_utf8(cp: int) -> bytes:
 
 
 # ---------------------------------------------------------------------------
-# Tree build — exact parity with reference buildTree (huffman.go:58)
+# Tree build — Go's buildTree (huffman.go:58) on Go's container/heap
 
 
 class Leaf:
@@ -145,7 +162,9 @@ class _GoTreeHeap:
 
     def _up(self, j: int) -> None:
         while True:
-            i = (j - 1) // 2
+            # Go's (j - 1) / 2 truncates toward zero: the root is its own parent and the climb
+            # stops there (Python's floor division would compare the root with the last item)
+            i = (j - 1) // 2 if j > 0 else 0
             if i == j or not self._less(j, i):
                 break
             self.h[i], self.h[j] = self.h[j], self.h[i]
@@ -181,11 +200,11 @@ class _GoTreeHeap:
 
 
 def build_tree(sym_freqs: dict[int, int]):
-    """Exact parity with reference buildTree (huffman.go:58).
+    """The reference's buildTree (huffman.go:58): the tree Go builds, leaf for leaf.
 
     The reference's key/value re-pairing loop is equivalent to ordering the
-    leaves by (freq, rune) ascending; the heap then merges with Go heap
-    mechanics.
+    leaves by (freq, rune) ascending; the heap then merges as Go's
+    container/heap does, its sift-up stopping at the root.
     """
     if not sym_freqs:
         raise ValueError("huffman: empty frequency table")
@@ -219,15 +238,16 @@ def print_codes(tree) -> tuple[list[int], list[str]]:
 # Header
 
 
-def build_header(sym_freqs: dict[int, int]) -> bytes:
-    """Canonical header: entries in ascending rune order (see module doc)."""
+def build_header(sym_freqs: dict[int, int], raw: bool = False) -> bytes:
+    """Canonical header: entries in ascending rune order (see module doc); with ``raw`` the symbols are
+    bytes, each written as itself."""
     parts = []
     for rune in sorted(sym_freqs):
         freq = sym_freqs[rune]
         if rune == 10:
             parts.append(b"%d|\\n" % freq)
         else:
-            parts.append(b"%d|" % freq + rune_to_utf8(rune))
+            parts.append(b"%d|" % freq + (bytes([rune]) if raw else rune_to_utf8(rune)))
     return b"".join(parts)
 
 
@@ -238,7 +258,28 @@ def parse_header(header: bytes) -> dict[int, int]:
     the next rune is the symbol (with ``\n`` two-char special case). All other
     bytes are skipped, which makes the parser order- and junk-tolerant.
     """
+    return _scan_header(header)[0]
+
+
+def read_header(header: bytes) -> tuple[dict[int, int], bool]:
+    """(counts, raw): a container block's header. Where a symbol's first byte begins no valid UTF-8
+    sequence, which only a byte-coded block writes (module doc), every symbol is the byte after its
+    '|' and ``raw`` is True; otherwise ``parse_header``'s runes."""
+    sym_freqs, raw = _scan_header(header)
+    if not raw:
+        return sym_freqs, False
+    return _scan_header(header, raw=True)[0], True
+
+
+def _starts_no_rune(data: bytes) -> bool:
+    """Whether ``data`` begins with a byte >= 0x80 that begins no valid UTF-8 sequence."""
+    return data[0] >= 0x80 and go_decode_runes(data[:4])[0] == RUNE_ERROR and data[:3] != b"\xef\xbf\xbd"
+
+
+def _scan_header(header: bytes, raw: bool = False) -> tuple[dict[int, int], bool]:
+    """parse_header's scan, its symbols bytes with ``raw``; -> (counts, whether a symbol begins no rune)."""
     sym_freqs: dict[int, int] = {}
+    stray = False
     temp = ""
     i, n = 0, len(header)
     while i < n:
@@ -254,12 +295,13 @@ def parse_header(header: bytes) -> dict[int, int]:
             sym_freqs[10] = freq
             i += 1
         else:
-            tail = go_decode_runes(header[i + 1 : i + 5])
+            tail = header[i + 1 : i + 5]
             if not tail:
                 raise ValueError("huffman: truncated header")
-            sym_freqs[tail[0]] = freq
+            stray = stray or _starts_no_rune(tail)
+            sym_freqs[tail[0] if raw else go_decode_runes(tail)[0]] = freq
         i += 2  # reference: inner i++ plus loop i++
-    return sym_freqs
+    return sym_freqs, stray
 
 
 # ---------------------------------------------------------------------------
@@ -280,15 +322,51 @@ def compress(data: bytes) -> bytes:
     code_of = dict(zip(vals, bins))
 
     bits = "".join(code_of[r] for r in runes)
+    return build_header(sym_freqs) + SEPARATOR + _padded(bits)
 
+
+def _padded(bits: str) -> bytes:
+    """The pad byte, then ``bits`` packed MSB-first behind that many zero bits."""
     rem = len(bits) % 8
     pad = 0 if rem == 0 else 8 - rem
     padded = "0" * pad + bits
     payload = np.packbits(
         np.frombuffer(padded.encode("ascii"), dtype=np.uint8) - ord("0")
     ).tobytes() if padded else b""
+    return bytes([pad]) + payload
 
-    return build_header(sym_freqs) + SEPARATOR + bytes([pad]) + payload
+
+def go_lossless(data: bytes) -> bool:
+    """Whether Go's rune iteration gives ``data`` back: exactly where it is valid UTF-8, whose
+    sequences Python's strict decoder accepts as Go's does."""
+    try:
+        data.decode("utf-8")
+    except UnicodeDecodeError:
+        return False
+    return True
+
+
+def compress_block(data: bytes) -> bytes:
+    """A container block's stream: Go's (``compress``) where Go's rune iteration gives the block back,
+    else the block coded over its bytes (module doc)."""
+    if go_lossless(data):
+        return compress(data)
+    counts = np.bincount(np.frombuffer(data, dtype=np.uint8), minlength=256)
+    syms = np.nonzero(counts)[0]
+    sym_freqs = dict(zip(syms.tolist(), counts[syms].tolist()))
+    code_of = [""] * 256
+    for value, code in zip(*print_codes(build_tree(sym_freqs))):
+        code_of[value] = code
+    return build_header(sym_freqs, raw=True) + SEPARATOR + _padded("".join(map(code_of.__getitem__, data)))
+
+
+def decompress_block(data: bytes) -> bytes:
+    """The inverse of ``compress_block``: Go's ``decompress``, or a byte-coded block's bytes."""
+    header, sep, rest = data.partition(SEPARATOR)
+    sym_freqs, raw = read_header(header) if sep else ({}, False)
+    if not raw:
+        return decompress(data)
+    return bytes(_walk(build_tree(sym_freqs), rest))
 
 
 def decompress(data: bytes) -> bytes:
@@ -299,7 +377,11 @@ def decompress(data: bytes) -> bytes:
         raise ValueError("huffman: missing header separator") from None
     sym_freqs = parse_header(header)
     tree = build_tree(sym_freqs)
+    return b"".join(rune_to_utf8(r) for r in _walk(tree, rest))
 
+
+def _walk(tree, rest: bytes) -> list[int]:
+    """The symbols of the pad byte and payload ``rest`` walked through ``tree``."""
     if not rest:
         raise ValueError("huffman: missing pad byte")
     pad = rest[0]
@@ -333,5 +415,5 @@ def decompress(data: bytes) -> bytes:
         node = node.left if bits[i] == 0 else node.right
         i += 1
 
-    return b"".join(rune_to_utf8(r) for r in out_runes)
+    return out_runes
 

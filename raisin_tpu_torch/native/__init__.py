@@ -7,7 +7,9 @@ under a hash of the source, the flags and what ``-march=native`` selects on
 this host (so a library copied with the checkout to another CPU is not
 loaded there), and loaded with ctypes. The engine registers it
 as the ``native`` backend of ``lzss``, ``arithmetic``, ``mcc`` and ``dmc``;
-every byte it writes equals the port's oracle copies in ``formats/``.
+every byte it writes equals the port's oracle copies in ``formats/``. The
+container's Huffman layer takes its trees from :func:`huffman_trees`, Go's
+trees of a batch of blocks in one call without the interpreter lock.
 
 A failed build raises :class:`NativeBuildError`: nothing falls back to the
 Python copies here, the registry's order picks the backend. Threads and
@@ -24,6 +26,8 @@ import os
 import subprocess
 import tempfile
 import threading
+
+import numpy as np
 
 _SRC = os.path.join(os.path.dirname(__file__), "src", "rsn_native.c")
 _CACHE = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build", "native")
@@ -96,6 +100,8 @@ def _load():
                 ctypes.POINTER(ctypes.c_long),
             ]
             fn.restype = ctypes.c_long
+        lib.rsn_huffman_trees.argtypes = [ctypes.c_void_p, ctypes.c_long] + [ctypes.c_void_p] * 5
+        lib.rsn_huffman_trees.restype = ctypes.c_long
         _lib = lib
         return lib
 
@@ -154,3 +160,31 @@ def dmc_compress(data: bytes) -> bytes:
 def dmc_decompress(data: bytes) -> bytes:
     """Reference-parity stub (dmc.go:274): always b"Hello!"."""
     return _call("rsn_dmc_decompress", data)
+
+
+def huffman_trees(counts: np.ndarray, ids: np.ndarray):
+    """Go's Huffman tree of each of B tables of byte counts, as ``formats/huffman.build_tree`` builds it.
+
+    Args:
+      counts: (B, 256) int64 byte counts; a block of zeros gets no tree.
+      ids: (B, 256) uint8, the id kernel H takes for each symbol.
+
+    Returns (codes (B, 256) uint32, lens (B, 256) int32, tables (B, 64)
+    int32, longest (B,) int32): each symbol's code (its ``lens`` low bits,
+    the first bit the most significant; 0 past 32 bits) and length, 0 for an
+    absent symbol and for a one-leaf tree's; kernel H's child table
+    (``ops/huffman_blocks.packed_table``'s layout), zero where an id is 128
+    or more or the tree has one leaf; and the deepest code, -1 for no tree.
+    """
+    lib = _load()
+    counts = np.ascontiguousarray(counts, dtype=np.int64)
+    ids = np.ascontiguousarray(ids, dtype=np.uint8)
+    B = counts.shape[0]
+    codes = np.empty((B, 256), dtype=np.uint32)
+    lens = np.empty((B, 256), dtype=np.int32)
+    tables = np.empty((B, 64), dtype=np.int32)
+    longest = np.empty(B, dtype=np.int32)
+    lib.rsn_huffman_trees(counts.ctypes.data, B, ids.ctypes.data, codes.ctypes.data, lens.ctypes.data,
+                          tables.ctypes.data, longest.ctypes.data)
+    return codes, lens, tables, longest
+

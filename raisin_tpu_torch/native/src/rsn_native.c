@@ -9,7 +9,8 @@
  * One change from the original, which alters no byte it writes correctly:
  * the "<D,L>" token buffers hold two longs of 20 digits each (the original's
  * 16 bytes overflow once D and L have 14 digits between them, at windows of
- * about 10^6).
+ * about 10^6). One addition, the port's own: rsn_huffman_trees, Go's Huffman
+ * trees of a batch of byte-count tables (the last section).
  *
  * Exported ABI (ctypes): every function returns the number of bytes written
  * to *out, or a negative error code. `rsn_buf` outputs are malloc'd and
@@ -988,5 +989,163 @@ long rsn_dmc_decompress(const uint8_t *in, long n, uint8_t **out_p, long *out_le
     memcpy(p, hello, 6);
     *out_p = p;
     *out_len = 6;
+    return 0;
+}
+
+/* ------------------------------------------------------------------ */
+/* Huffman trees of a batch of byte-count tables (the port's own)      */
+/*
+ * Go's buildTree (compressor/huffman/huffman.go:58) on Go's container/heap,
+ * one tree a block, for the RSNB container's Huffman blocks on the card
+ * (raisin_tpu_torch/ops/huffman_blocks.py); the same trees as
+ * raisin_tpu_torch/formats/huffman.py's build_tree. The leaves in ascending
+ * (count, symbol) order, heap.Init over them, then, while more than one tree
+ * is left, two Pops and a Push of their join, the first popped on the left.
+ * Less compares counts only; up's parent is (j - 1) / 2, which C, as Go,
+ * truncates toward zero, so the climb stops at the root.
+ *
+ * counts: B x 256 byte counts (a block of zeros gets no tree: longest -1).
+ * ids: B x 256, the id kernel H takes for each symbol (its leaf is 128 + id).
+ * Out, a block each: codes and lens, B x 256, each symbol's code (its lens
+ * low bits, the first bit the most significant; 0 past 32 bits) and length,
+ * 0 for an absent symbol and for the lone symbol of a one-leaf tree;
+ * tables, B x 64, kernel H's child table (internal nodes numbered in
+ * preorder from 0, word j holding nodes 2j and 2j + 1 in its low and high
+ * half, each left | right << 8), all zero where an id is 128 or more or the
+ * tree has one leaf; longest, B, the deepest code.
+ */
+
+typedef struct {
+    int64_t freq;
+    int node;
+} hf_item;
+
+static int hf_leaf_cmp(const void *pa, const void *pb) {
+    const hf_item *a = (const hf_item *)pa, *b = (const hf_item *)pb;
+    if (a->freq != b->freq) return a->freq < b->freq ? -1 : 1;
+    return a->node - b->node; /* node is the symbol for a leaf */
+}
+
+static void hf_down(hf_item *h, int i, int n) {
+    for (;;) {
+        int j1 = 2 * i + 1;
+        if (j1 >= n) break;
+        int j = j1;
+        if (j1 + 1 < n && h[j1 + 1].freq < h[j1].freq) j = j1 + 1;
+        if (!(h[j].freq < h[i].freq)) break;
+        hf_item t = h[i];
+        h[i] = h[j];
+        h[j] = t;
+        i = j;
+    }
+}
+
+static void hf_up(hf_item *h, int j) {
+    for (;;) {
+        int i = (j - 1) / 2;
+        if (i == j || !(h[j].freq < h[i].freq)) break;
+        hf_item t = h[i];
+        h[i] = h[j];
+        h[j] = t;
+        j = i;
+    }
+}
+
+long rsn_huffman_trees(const int64_t *counts, long B, const uint8_t *ids, uint32_t *codes, int32_t *lens,
+                       int32_t *tables, int32_t *longest) {
+    /* nodes 0..255 are the leaves (their symbols), 256.. the joins */
+    int left[512], right[512];
+    for (long b = 0; b < B; ++b) {
+        const int64_t *c = counts + 256 * b;
+        const uint8_t *id = ids + 256 * b;
+        uint32_t *code = codes + 256 * b;
+        int32_t *len = lens + 256 * b;
+        uint32_t *words = (uint32_t *)(tables + 64 * b);
+        hf_item h[256];
+        int n = 0;
+        memset(code, 0, 256 * sizeof(uint32_t));
+        memset(len, 0, 256 * sizeof(int32_t));
+        memset(words, 0, 64 * sizeof(uint32_t));
+        for (int s = 0; s < 256; ++s)
+            if (c[s] > 0) {
+                h[n].freq = c[s];
+                h[n].node = s;
+                ++n;
+            }
+        longest[b] = -1;
+        if (n == 0) continue;
+        qsort(h, n, sizeof(hf_item), hf_leaf_cmp);
+        for (int i = n / 2 - 1; i >= 0; --i) hf_down(h, i, n); /* heap.Init */
+        int size = n, joins = 256;
+        while (size > 1) {
+            hf_item a, bb;
+            hf_item t = h[0]; /* Pop: swap the root with the last, sift the root down */
+            h[0] = h[size - 1];
+            h[size - 1] = t;
+            hf_down(h, 0, size - 1);
+            a = h[--size];
+            t = h[0];
+            h[0] = h[size - 1];
+            h[size - 1] = t;
+            hf_down(h, 0, size - 1);
+            bb = h[--size];
+            left[joins] = a.node;
+            right[joins] = bb.node;
+            h[size].freq = a.freq + bb.freq; /* Push: append, sift up */
+            h[size].node = joins++;
+            hf_up(h, size++);
+        }
+        /* codes: a walk from the root, 0 to the left and 1 to the right */
+        int stack[512], depth[512];
+        uint64_t bits[512];
+        int top = 0, deepest = 0;
+        stack[top] = h[0].node;
+        depth[top] = 0;
+        bits[top++] = 0;
+        while (top > 0) {
+            --top;
+            int node = stack[top], d = depth[top];
+            uint64_t v = bits[top];
+            if (node < 256) {
+                len[node] = d;
+                code[node] = d <= 32 ? (uint32_t)v : 0u;
+                if (d > deepest) deepest = d;
+                continue;
+            }
+            stack[top] = right[node];
+            depth[top] = d + 1;
+            bits[top++] = (v << 1) | 1u;
+            stack[top] = left[node];
+            depth[top] = d + 1;
+            bits[top++] = v << 1;
+        }
+        longest[b] = deepest;
+        if (n == 1) continue;
+        /* kernel H's table: a preorder walk, left first, numbering the joins */
+        int parent[512], side[512], counter = 0, fits = 1;
+        top = 0;
+        stack[top] = h[0].node;
+        parent[top] = -1;
+        side[top++] = 0;
+        while (top > 0 && fits) {
+            --top;
+            int node = stack[top], p = parent[top], sd = side[top], ref;
+            if (node < 256) {
+                if (id[node] >= 128) fits = 0;
+                ref = 128 + id[node];
+            } else {
+                if (counter >= 127) fits = 0;
+                ref = counter++;
+                stack[top] = right[node];
+                parent[top] = ref;
+                side[top++] = 1;
+                stack[top] = left[node];
+                parent[top] = ref;
+                side[top++] = 0;
+            }
+            if (fits && p >= 0) words[p / 2] |= (uint32_t)ref << (16 * (p % 2) + 8 * sd);
+        }
+        if (!fits) memset(words, 0, 64 * sizeof(uint32_t));
+    }
     return 0;
 }

@@ -53,6 +53,7 @@ import torch
 
 from raisin_tpu_torch.ops import _build
 from raisin_tpu_torch.ops.arithmetic_rows import _check_cuda
+from raisin_tpu_torch.ops.device import sync
 
 NSYM = 128  # ASCII symbols; the container sends other blocks to the host oracle
 CONTAINER_CODE_BITS = 32  # the container's longest code (raisin_tpu/ops/huffman_blocks.py:145)
@@ -207,7 +208,9 @@ def _encode_on_card(entry: str, wrapper, x, lengths, codes, code_lens, bits, cap
             *extra, _build.stream_handle(dev),
         )
     _build.check(entry, rc)
-    if int(work[-1]) >> 32:
+    with sync("faults"):
+        differ = int(work[-1]) >> 32
+    if differ:
         _check_totals(totals, bits)
     return rows, byte_lens, pads
 

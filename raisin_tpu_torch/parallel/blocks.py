@@ -11,10 +11,15 @@ the port stays on the card at any window up to 65535, with the same
 payloads). Any other pipeline encodes and decodes block by block through
 the engine's ``compress_bytes`` and ``decompress_bytes``, as in the JAX
 package. So every container this module writes is byte-identical to the
-JAX package's, and each package reads the other's, with one exception:
-``lzss,huffman`` past window 16383, where the JAX package's device search
-packs distances in 14 bits and writes wrong tokens, carries the oracle's
-tokens here (ROADMAP, "In the reference"). Past window 65535, the card's
+JAX package's, and each package reads the other's, with three exceptions,
+all in the Huffman pipelines (ROADMAP, "In the reference" and
+"Divergences"): ``lzss,huffman`` past window 16383, where the JAX
+package's device search packs distances in 14 bits and writes wrong
+tokens, carries the oracle's tokens here; the port builds Go's tree, which
+the JAX package's heap does not where its sift-up passes the root; and a
+block whose Huffman input is not valid UTF-8, whose Go stream would lose
+bytes, is coded over its bytes (``formats/huffman.compress_block``), so
+that every container decodes to its input. Past window 65535, the card's
 search, the LZSS pipelines take each block's tokens from the native C
 runtime, as the JAX package does past its own. An ``lzss,arithmetic``
 container without an aux table decodes block by block through

@@ -25,6 +25,11 @@ import pytest
 from raisin_tpu.engine.benchmark import benchmark_suite as jax_suite
 from raisin_tpu.utils import corpus as jax_corpus
 from raisin_tpu_torch.engine.benchmark import CI_ALGORITHMS
+from tests import go_heap
+from tests.go_heap import jax_heap_at_go_rule  # noqa: F401  (a fixture)
+
+# the JAX oracle builds Go's Huffman tree here, as the port does (tests/go_heap.py)
+pytestmark = pytest.mark.usefixtures("jax_heap_at_go_rule")
 
 REPO = Path(__file__).resolve().parent.parent
 SCALE = "0.001"
@@ -33,11 +38,14 @@ FILES = 11  # the corpus' files; each contributes one row an algorithm
 
 @pytest.fixture(scope="module")
 def pages(tmp_path_factory):
-    """(JAX script's output directory, the port's), both written on the CPU."""
+    """(JAX script's output directory, the port's), both written on the CPU; the JAX script's process
+    builds Go's Huffman tree (``tests/go_heap.py``)."""
     out = tmp_path_factory.mktemp("ci_pages")
     env = {**os.environ, "RAISIN_CI_SCALE": SCALE, "JAX_PLATFORMS": "cpu", "OMP_NUM_THREADS": "1"}
-    subprocess.run(["sh", str(REPO / "scripts" / "ci_bench.sh"), str(out / "jax")], env=env, check=True,
-                   capture_output=True)
+    site = out / "go_heap_site"
+    site.mkdir()
+    subprocess.run(["sh", str(REPO / "scripts" / "ci_bench.sh"), str(out / "jax")],
+                   env={**env, "PYTHONPATH": go_heap.sitecustomize(site, REPO)}, check=True, capture_output=True)
     subprocess.run(["sh", str(REPO / "scripts" / "ci_bench_torch.sh"), str(out / "port")],
                    env={**env, "RAISIN_CI_DEVICE": "cpu"}, check=True, capture_output=True)
     return out / "jax", out / "port"

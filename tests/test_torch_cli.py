@@ -29,6 +29,10 @@ from raisin_tpu.parallel import blocks as jax_blocks
 from raisin_tpu_torch import cli as port_cli
 from raisin_tpu_torch.engine import registry as port_registry
 from tests.fixtures import VERSE, random_text
+from tests.go_heap import jax_heap_at_go_rule  # noqa: F401  (a fixture)
+
+# the JAX oracle builds Go's Huffman tree here, as the port does (tests/go_heap.py)
+pytestmark = pytest.mark.usefixtures("jax_heap_at_go_rule")
 
 torch.set_num_threads(1)
 

@@ -25,6 +25,10 @@ from raisin_tpu_torch import utils
 from raisin_tpu_torch.engine import core as port_core
 from raisin_tpu_torch.utils import corpus as port_corpus
 from tests.test_corpus import FILES_FAST, FILES_SLOW, TRAVIS_ALGOS
+from tests.go_heap import jax_heap_at_go_rule  # noqa: F401  (a fixture)
+
+# the JAX oracle builds Go's Huffman tree here, as the port does (tests/go_heap.py)
+pytestmark = pytest.mark.usefixtures("jax_heap_at_go_rule")
 
 torch.set_num_threads(1)
 

@@ -31,6 +31,10 @@ from raisin_tpu_torch.formats import lzss as port_lzss
 from raisin_tpu_torch.ops import arithmetic_scan, huffman_blocks, huffman_stream, lzss_stream
 from raisin_tpu_torch.parallel import blocks as port_blocks
 from tests.fixtures import ABC, HELLO, UNICODE_TEXT, VERSE, random_bytes, random_text
+from tests.go_heap import jax_heap_at_go_rule  # noqa: F401  (a fixture)
+
+# the JAX oracle builds Go's Huffman tree here, as the port does (tests/go_heap.py)
+pytestmark = pytest.mark.usefixtures("jax_heap_at_go_rule")
 
 torch.set_num_threads(1)
 

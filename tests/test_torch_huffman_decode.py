@@ -42,6 +42,10 @@ import bench
 from raisin_tpu_torch.formats import huffman as port_hf
 from raisin_tpu_torch.ops import huffman_blocks, huffman_rows
 from tests.test_torch_huffman import _fibonacci_block, _interp_case
+from tests.go_heap import jax_heap_at_go_rule  # noqa: F401  (a fixture)
+
+# the JAX oracle builds Go's Huffman tree here, as the port does (tests/go_heap.py)
+pytestmark = pytest.mark.usefixtures("jax_heap_at_go_rule")
 
 torch.set_num_threads(1)
 

@@ -41,6 +41,10 @@ from raisin_tpu_torch.formats import huffman as port_hf
 from raisin_tpu_torch.ops import huffman_blocks, huffman_rows, huffman_stream
 from raisin_tpu_torch.parallel import blocks as port_blocks
 from tests.test_torch_runes import host_kernels  # noqa: F401  (a fixture: wide G and H built for the host)
+from tests.go_heap import jax_heap_at_go_rule  # noqa: F401  (a fixture)
+
+# the JAX oracle builds Go's Huffman tree here, as the port does (tests/go_heap.py)
+pytestmark = pytest.mark.usefixtures("jax_heap_at_go_rule")
 
 torch.set_num_threads(1)
 CPU = "cpu"

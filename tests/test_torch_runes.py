@@ -32,6 +32,10 @@ from raisin_tpu_torch.formats import huffman as port_hf
 from raisin_tpu_torch.ops import huffman_blocks, huffman_rows, huffman_stream, runes
 from tests.fixtures import UNICODE_TEXT, random_bytes
 from tests.test_torch_huffman_encode import _host_build
+from tests.go_heap import jax_heap_at_go_rule  # noqa: F401  (a fixture)
+
+# the JAX oracle builds Go's Huffman tree here, as the port does (tests/go_heap.py)
+pytestmark = pytest.mark.usefixtures("jax_heap_at_go_rule")
 
 torch.set_num_threads(1)
 CPU = "cpu"

@@ -97,6 +97,30 @@ def test_a_cpu_mesh_records_one_range_a_block_range(direction):
         assert names.count("copy.pin") == 1 and names.count("copy.bytes") == 1
 
 
+def _no_lt(data: bytes) -> bytes:
+    """``data`` without '<' and 0xFF, which the LZSS escape turns into 0xFF: a rune that Go's Huffman
+    layer writes as U+FFFD, so an lzss,huffman container of them does not decode."""
+    return data.replace(b"<", b"(").replace(b"\xff", b"y")
+
+
+@pytest.mark.parametrize("direction", ["compress", "decompress"])
+def test_a_huffman_container_records_its_stages_and_waits(direction):
+    data = _no_lt(_text(1500, seed=8))
+    blob = blocks.compress_container(data, ("lzss", "huffman"), block_size=512, window=64, device="cpu")
+    if direction == "compress":
+        names = _ranges(lambda: blocks.compress_container(data, ("lzss", "huffman"), block_size=512, window=64,
+                                                          device="cpu"))
+        assert {"rsnb.enc.count", "rsnb.enc.tree", "rsnb.enc.huffman", "rsnb.enc.hframe"} <= set(names)
+        assert names.count("rsnb.enc.frame") == 1  # the container's; the payloads' own is rsnb.enc.hframe
+        waits = {"sync.d2h", "sync.h2d", "sync.mask"}  # counts, tables, the framed payloads (G's check word: a card's)
+    else:
+        names = _ranges(lambda: blocks.decompress_container(blob, device="cpu"))
+        assert {"rsnb.dec.tree", "rsnb.dec.rows", "rsnb.dec.huffman"} <= set(names)
+        waits = {"sync.h2d", "sync.faults", "sync.lengths"}  # tables, H's flags, its counts
+    assert waits <= {n for n in names if n.startswith("sync.")}
+    assert blocks.decompress_container(blob, device="cpu") == data
+
+
 def test_match_tile_counts_start_at_zero_on_the_cpu():
     lzss_match.reset_tile_counts()
     x = torch.frombuffer(bytearray(b"abcabcabcabc"), dtype=torch.uint8)[None]
@@ -146,7 +170,13 @@ def test_every_wait_for_the_card_is_inside_a_sync_range(card):
     def stream():
         compress_bytes(stream_in, ("lzss", "arithmetic"), device=card)
 
-    for fn in (container, stream):
+    huffman_in = _no_lt(data)
+
+    def huffman_container():
+        blob = blocks.compress_container(huffman_in, ("lzss", "huffman"), device=card)
+        assert blocks.decompress_container(blob, device=card) == huffman_in
+
+    for fn in (container, stream, huffman_container):
         fn()  # the kernels' build and first launches, outside the count
         seen, outside = _syncs(fn)
         assert seen > 0, "the sync debug mode reported nothing"

@@ -29,6 +29,10 @@ from raisin_tpu.parallel import blocks as jax_blocks
 from raisin_tpu_torch.engine import core as port_core
 from raisin_tpu_torch.engine import registry as port_registry
 from raisin_tpu_torch.parallel import blocks as port_blocks
+from tests.go_heap import jax_heap_at_go_rule  # noqa: F401  (a fixture)
+
+# the JAX oracle builds Go's Huffman tree here, as the port does (tests/go_heap.py)
+pytestmark = pytest.mark.usefixtures("jax_heap_at_go_rule")
 
 CPU = "cpu"
 BLOCK = 128 << 10
