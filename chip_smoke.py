@@ -2349,8 +2349,9 @@ def huffman_encode_args(x, n) -> tuple:
     from raisin_tpu_torch.ops import huffman_blocks, huffman_rows
 
     counts = huffman_blocks.count_symbols(x, n)
-    codes, code_lens, _, on_host = huffman_blocks.code_tables(counts)
-    check(not on_host.any(), "a block for kernel G is not ASCII")
+    t = huffman_blocks.code_tables(counts)
+    codes, code_lens = t.codes, t.code_lens
+    check(not t.on_host.any(), "a block for kernel G is not ASCII")
     nbits = (counts[:, : huffman_rows.NSYM] * code_lens).sum(1)
     capw = max(1, (int((nbits.max() + 7) // 8) + 3) // 4)
     codes_t = torch.from_numpy(codes.view(np.int32)).to(x.device)

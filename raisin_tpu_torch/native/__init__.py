@@ -9,7 +9,9 @@ loaded there), and loaded with ctypes. The engine registers it
 as the ``native`` backend of ``lzss``, ``arithmetic``, ``mcc`` and ``dmc``;
 every byte it writes equals the port's oracle copies in ``formats/``. The
 container's Huffman layer takes its trees from :func:`huffman_trees`, Go's
-trees of a batch of blocks in one call without the interpreter lock.
+trees of a batch of blocks in one call without the interpreter lock, and
+writes and reads its card blocks' headers the same way
+(:func:`huffman_encode_tables`, :func:`huffman_read_headers`).
 
 A failed build raises :class:`NativeBuildError`: nothing falls back to the
 Python copies here, the registry's order picks the backend. Threads and
@@ -21,6 +23,7 @@ of one process to one build.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 import hashlib
 import os
 import subprocess
@@ -102,6 +105,14 @@ def _load():
             fn.restype = ctypes.c_long
         lib.rsn_huffman_trees.argtypes = [ctypes.c_void_p, ctypes.c_long] + [ctypes.c_void_p] * 5
         lib.rsn_huffman_trees.restype = ctypes.c_long
+        lib.rsn_huffman_encode_tables.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long] + [ctypes.c_void_p] * 6
+        lib.rsn_huffman_encode_tables.restype = ctypes.c_long
+        lib.rsn_huffman_headers.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long, ctypes.c_long,
+                                            ctypes.c_void_p]
+        lib.rsn_huffman_headers.restype = ctypes.c_long
+        lib.rsn_huffman_read_headers.argtypes = [ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p, ctypes.c_void_p,
+                                                 ctypes.c_long, ctypes.c_int64] + [ctypes.c_void_p] * 9
+        lib.rsn_huffman_read_headers.restype = ctypes.c_long
         _lib = lib
         return lib
 
@@ -188,3 +199,100 @@ def huffman_trees(counts: np.ndarray, ids: np.ndarray):
                           tables.ctypes.data, longest.ctypes.data)
     return codes, lens, tables, longest
 
+
+
+def _shapes(ok: bool) -> None:
+    if not ok:
+        raise ValueError("native: arrays of mismatched shapes")
+
+
+class EncodeTables(NamedTuple):
+    """The card's tables and headers of a batch of blocks to encode (:func:`huffman_encode_tables`)."""
+
+    on_host: np.ndarray  # (B,) bool: the block takes the host oracle; its rows below are zero
+    ids: np.ndarray  # (B, 256) uint8: the id the kernels take for each byte
+    codes: np.ndarray  # (B, 128) uint32 by id: each code in its code_lens low bits, the first bit the most significant
+    code_lens: np.ndarray  # (B, 128) int32 by id
+    nbits: np.ndarray  # (B,) int64: the block's payload bits
+    heads: np.ndarray  # (B, P) uint8: the block's header and separator, right-aligned; P the longest
+    head_lens: np.ndarray  # (B,) int64: the header's bytes with the separator
+    longest: int  # the deepest code of the card's blocks, -1 for none
+
+
+def huffman_encode_tables(counts: np.ndarray, raw: np.ndarray) -> EncodeTables:
+    """Which of B blocks the card codes, with their Go trees' code tables, bit counts and headers.
+
+    Args:
+      counts: (B, 256) int64 byte counts.
+      raw: (B,) bool, the blocks coded over their bytes.
+
+    A block takes the host oracle where it is not raw and has a byte >= 0x80,
+    or is raw and leaves too few ASCII values free for its bytes >= 0x80
+    (``ops/huffman_blocks.ascii_ids``). A card block's header is
+    ``formats/huffman.build_header`` of its counts and the separator. One call
+    builds the tables and measures the headers, a second writes them.
+    """
+    lib = _load()
+    counts = np.ascontiguousarray(counts, dtype=np.int64)
+    raw = np.ascontiguousarray(raw, dtype=np.uint8)
+    B = counts.shape[0]
+    _shapes(counts.shape == (B, 256) and raw.shape == (B,))
+    on_host = np.empty(B, dtype=np.uint8)
+    ids = np.empty((B, 256), dtype=np.uint8)
+    codes = np.empty((B, 128), dtype=np.uint32)
+    lens = np.empty((B, 128), dtype=np.int32)
+    nbits = np.empty(B, dtype=np.int64)
+    head_lens = np.empty(B, dtype=np.int64)
+    longest = lib.rsn_huffman_encode_tables(counts.ctypes.data, raw.ctypes.data, B, on_host.ctypes.data,
+                                            ids.ctypes.data, codes.ctypes.data, lens.ctypes.data, nbits.ctypes.data,
+                                            head_lens.ctypes.data)
+    width = int(head_lens.max(initial=0))
+    heads = np.zeros((B, width), dtype=np.uint8)
+    if lib.rsn_huffman_headers(counts.ctypes.data, on_host.ctypes.data, B, width, heads.ctypes.data) != 0:
+        raise RuntimeError("rsn_huffman_headers: a header longer than rsn_huffman_encode_tables measured it")
+    return EncodeTables(on_host.view(bool), ids, codes, lens, nbits, heads, head_lens, int(longest))
+
+
+# the largest count of a header that rsn_huffman_read_headers takes (HF_MAX_COUNT)
+HUFFMAN_MAX_COUNT = 1 << 40
+
+
+class ReadHeaders(NamedTuple):
+    """The blocks' headers as :func:`huffman_read_headers` read them; rows of blocks not taken are zero."""
+
+    taken: np.ndarray  # (B,) bool: the card decodes the block
+    freqs: np.ndarray  # (B, 256) int64
+    ids: np.ndarray  # (B, 256) uint8: the id kernel H gives each symbol (the identity where not taken)
+    raw: np.ndarray  # (B,) bool: the block is coded over its bytes
+    back: np.ndarray  # (B, 128) uint8: a raw block's byte of each id
+    pads: np.ndarray  # (B,) int32: the pad byte
+    pstart: np.ndarray  # (B,) int64: the payload's first byte after the pad byte, less ``base``
+    blens: np.ndarray  # (B,) int64: the payload's bytes after the pad byte
+    tables: np.ndarray  # (B, 64) int32: kernel H's child table
+
+
+def huffman_read_headers(data, starts: np.ndarray, sizes: np.ndarray, base: int) -> ReadHeaders:
+    """Read B blocks' headers, block b at ``data[starts[b] : starts[b] + sizes[b]]``, as
+    ``formats/huffman.read_header`` reads them, and build the trees of those the card decodes.
+
+    The card takes a block whose separator and pad byte lie inside it and
+    whose header names two symbols or more, each counted once or more, each
+    ASCII or, in a block coded over its bytes, a byte with an ASCII id, and
+    none counted more than :data:`HUFFMAN_MAX_COUNT` (a count no block of the
+    container's writer reaches). Every other block is left to the caller.
+    ``data`` (bytes-like) is read in place.
+    """
+    lib = _load()
+    buf = np.frombuffer(data, dtype=np.uint8)
+    starts = np.ascontiguousarray(starts, dtype=np.int64)
+    sizes = np.ascontiguousarray(sizes, dtype=np.int64)
+    B = starts.shape[0]
+    _shapes(sizes.shape == (B,))
+    out = ReadHeaders(
+        np.empty(B, dtype=np.uint8), np.empty((B, 256), dtype=np.int64), np.empty((B, 256), dtype=np.uint8),
+        np.empty(B, dtype=np.uint8), np.empty((B, 128), dtype=np.uint8), np.empty(B, dtype=np.int32),
+        np.empty(B, dtype=np.int64), np.empty(B, dtype=np.int64), np.empty((B, 64), dtype=np.int32),
+    )
+    lib.rsn_huffman_read_headers(buf.ctypes.data, buf.size, starts.ctypes.data, sizes.ctypes.data, B, base,
+                                 *(a.ctypes.data for a in out))
+    return out._replace(taken=out.taken.view(bool), raw=out.raw.view(bool))

@@ -9,8 +9,10 @@
  * One change from the original, which alters no byte it writes correctly:
  * the "<D,L>" token buffers hold two longs of 20 digits each (the original's
  * 16 bytes overflow once D and L have 14 digits between them, at windows of
- * about 10^6). One addition, the port's own: rsn_huffman_trees, Go's Huffman
- * trees of a batch of byte-count tables (the last section).
+ * about 10^6). Additions, the port's own (the last two sections):
+ * rsn_huffman_trees, Go's Huffman trees of a batch of byte-count tables, and
+ * the text codec of the container's Huffman block headers, a batch a call
+ * (rsn_huffman_encode_tables, rsn_huffman_headers, rsn_huffman_read_headers).
  *
  * Exported ABI (ctypes): every function returns the number of bytes written
  * to *out, or a negative error code. `rsn_buf` outputs are malloc'd and
@@ -1051,101 +1053,355 @@ static void hf_up(hf_item *h, int j) {
     }
 }
 
-long rsn_huffman_trees(const int64_t *counts, long B, const uint8_t *ids, uint32_t *codes, int32_t *lens,
-                       int32_t *tables, int32_t *longest) {
+/* One block's tree: code and len by symbol (256 each), words kernel H's table (64) where not NULL.
+ * Returns the deepest code, -1 for a block of zeros. */
+static int hf_tree(const int64_t *c, const uint8_t *id, uint32_t *code, int32_t *len, uint32_t *words) {
     /* nodes 0..255 are the leaves (their symbols), 256.. the joins */
     int left[512], right[512];
+    hf_item h[256];
+    int n = 0;
+    memset(code, 0, 256 * sizeof(uint32_t));
+    memset(len, 0, 256 * sizeof(int32_t));
+    if (words) memset(words, 0, 64 * sizeof(uint32_t));
+    for (int s = 0; s < 256; ++s)
+        if (c[s] > 0) {
+            h[n].freq = c[s];
+            h[n].node = s;
+            ++n;
+        }
+    if (n == 0) return -1;
+    qsort(h, n, sizeof(hf_item), hf_leaf_cmp);
+    for (int i = n / 2 - 1; i >= 0; --i) hf_down(h, i, n); /* heap.Init */
+    int size = n, joins = 256;
+    while (size > 1) {
+        hf_item a, bb;
+        hf_item t = h[0]; /* Pop: swap the root with the last, sift the root down */
+        h[0] = h[size - 1];
+        h[size - 1] = t;
+        hf_down(h, 0, size - 1);
+        a = h[--size];
+        t = h[0];
+        h[0] = h[size - 1];
+        h[size - 1] = t;
+        hf_down(h, 0, size - 1);
+        bb = h[--size];
+        left[joins] = a.node;
+        right[joins] = bb.node;
+        h[size].freq = a.freq + bb.freq; /* Push: append, sift up */
+        h[size].node = joins++;
+        hf_up(h, size++);
+    }
+    /* codes: a walk from the root, 0 to the left and 1 to the right */
+    int stack[512], depth[512];
+    uint64_t bits[512];
+    int top = 0, deepest = 0;
+    stack[top] = h[0].node;
+    depth[top] = 0;
+    bits[top++] = 0;
+    while (top > 0) {
+        --top;
+        int node = stack[top], d = depth[top];
+        uint64_t v = bits[top];
+        if (node < 256) {
+            len[node] = d;
+            code[node] = d <= 32 ? (uint32_t)v : 0u;
+            if (d > deepest) deepest = d;
+            continue;
+        }
+        stack[top] = right[node];
+        depth[top] = d + 1;
+        bits[top++] = (v << 1) | 1u;
+        stack[top] = left[node];
+        depth[top] = d + 1;
+        bits[top++] = v << 1;
+    }
+    if (n == 1 || !words) return deepest;
+    /* kernel H's table: a preorder walk, left first, numbering the joins */
+    int parent[512], side[512], counter = 0, fits = 1;
+    top = 0;
+    stack[top] = h[0].node;
+    parent[top] = -1;
+    side[top++] = 0;
+    while (top > 0 && fits) {
+        --top;
+        int node = stack[top], p = parent[top], sd = side[top], ref;
+        if (node < 256) {
+            if (id[node] >= 128) fits = 0;
+            ref = 128 + id[node];
+        } else {
+            if (counter >= 127) fits = 0;
+            ref = counter++;
+            stack[top] = right[node];
+            parent[top] = ref;
+            side[top++] = 1;
+            stack[top] = left[node];
+            parent[top] = ref;
+            side[top++] = 0;
+        }
+        if (fits && p >= 0) words[p / 2] |= (uint32_t)ref << (16 * (p % 2) + 8 * sd);
+    }
+    if (!fits) memset(words, 0, 64 * sizeof(uint32_t));
+    return deepest;
+}
+
+long rsn_huffman_trees(const int64_t *counts, long B, const uint8_t *ids, uint32_t *codes, int32_t *lens,
+                       int32_t *tables, int32_t *longest) {
+    for (long b = 0; b < B; ++b)
+        longest[b] = hf_tree(counts + 256 * b, ids + 256 * b, codes + 256 * b, lens + 256 * b,
+                             (uint32_t *)(tables + 64 * b));
+    return 0;
+}
+
+/* ------------------------------------------------------------------ */
+/* Huffman block headers of a batch (the port's own)                   */
+/*
+ * The text codec of the container's Huffman block headers
+ * (raisin_tpu_torch/formats/huffman.py build_header and read_header), for
+ * the blocks the card codes, with each block's tree, in one call a batch.
+ *
+ * A header is its symbols' entries in ascending order, each the count in
+ * decimal, '|' and the symbol's byte (10 as the two bytes "\n"), then the
+ * separator "\\\n". A card block's symbols are ASCII, or, in a block coded
+ * over its bytes ("raw"), any byte; each byte >= 0x80 of a raw block takes
+ * an ASCII id that is no symbol, from 127 down and never 0 (ops/huffman_blocks
+ * ascii_ids), for the kernels.
+ */
+
+/* ascii_ids: id[s] = s % 128, each symbol >= 128 an ASCII value that is no symbol; 0 where too few are free */
+static int hf_ascii_ids(const uint8_t *present, uint8_t *id) {
+    int free_at = 127;
+    for (int s = 0; s < 256; ++s) id[s] = (uint8_t)(s & 127);
+    for (int s = 128; s < 256; ++s) {
+        if (!present[s]) continue;
+        while (free_at > 0 && present[free_at]) --free_at;
+        if (free_at == 0) return 0;
+        id[s] = (uint8_t)free_at--;
+    }
+    return 1;
+}
+
+static int hf_digits(int64_t v) {
+    int d = 1;
+    while (v >= 10) {
+        v /= 10;
+        ++d;
+    }
+    return d;
+}
+
+/*
+ * Encode: for B blocks of counts (B x 256) and raw flags (B), which blocks the
+ * card takes, their tables and their headers' lengths. A block takes the
+ * host oracle (on_host) where it is not raw and has a byte >= 0x80, or is raw
+ * and has no ASCII ids. Out, a block each: ids (256, identity for a block not
+ * raw or on the host), codes and lens by id (128 each, zero on the host),
+ * nbits the block's exact bit count, head_lens its header's bytes with the
+ * separator (0 on the host). Returns the deepest code of the card's blocks,
+ * -1 for none.
+ */
+long rsn_huffman_encode_tables(const int64_t *counts, const uint8_t *raw, long B, uint8_t *on_host, uint8_t *ids,
+                               uint32_t *codes, int32_t *lens, int64_t *nbits, int64_t *head_lens) {
+    long deepest = -1;
     for (long b = 0; b < B; ++b) {
         const int64_t *c = counts + 256 * b;
-        const uint8_t *id = ids + 256 * b;
-        uint32_t *code = codes + 256 * b;
-        int32_t *len = lens + 256 * b;
-        uint32_t *words = (uint32_t *)(tables + 64 * b);
-        hf_item h[256];
-        int n = 0;
-        memset(code, 0, 256 * sizeof(uint32_t));
-        memset(len, 0, 256 * sizeof(int32_t));
-        memset(words, 0, 64 * sizeof(uint32_t));
-        for (int s = 0; s < 256; ++s)
-            if (c[s] > 0) {
-                h[n].freq = c[s];
-                h[n].node = s;
-                ++n;
-            }
-        longest[b] = -1;
-        if (n == 0) continue;
-        qsort(h, n, sizeof(hf_item), hf_leaf_cmp);
-        for (int i = n / 2 - 1; i >= 0; --i) hf_down(h, i, n); /* heap.Init */
-        int size = n, joins = 256;
-        while (size > 1) {
-            hf_item a, bb;
-            hf_item t = h[0]; /* Pop: swap the root with the last, sift the root down */
-            h[0] = h[size - 1];
-            h[size - 1] = t;
-            hf_down(h, 0, size - 1);
-            a = h[--size];
-            t = h[0];
-            h[0] = h[size - 1];
-            h[size - 1] = t;
-            hf_down(h, 0, size - 1);
-            bb = h[--size];
-            left[joins] = a.node;
-            right[joins] = bb.node;
-            h[size].freq = a.freq + bb.freq; /* Push: append, sift up */
-            h[size].node = joins++;
-            hf_up(h, size++);
+        uint8_t *id = ids + 256 * b, present[256];
+        uint32_t code256[256];
+        int32_t len256[256];
+        int high = 0, host;
+        for (int s = 0; s < 256; ++s) {
+            present[s] = c[s] > 0;
+            id[s] = (uint8_t)s;
+            if (s >= 128 && present[s]) high = 1;
         }
-        /* codes: a walk from the root, 0 to the left and 1 to the right */
-        int stack[512], depth[512];
-        uint64_t bits[512];
-        int top = 0, deepest = 0;
-        stack[top] = h[0].node;
-        depth[top] = 0;
-        bits[top++] = 0;
-        while (top > 0) {
-            --top;
-            int node = stack[top], d = depth[top];
-            uint64_t v = bits[top];
-            if (node < 256) {
-                len[node] = d;
-                code[node] = d <= 32 ? (uint32_t)v : 0u;
-                if (d > deepest) deepest = d;
-                continue;
-            }
-            stack[top] = right[node];
-            depth[top] = d + 1;
-            bits[top++] = (v << 1) | 1u;
-            stack[top] = left[node];
-            depth[top] = d + 1;
-            bits[top++] = v << 1;
+        host = raw[b] ? !hf_ascii_ids(present, id) : high;
+        if (host) for (int s = 0; s < 256; ++s) id[s] = (uint8_t)s;
+        on_host[b] = (uint8_t)host;
+        memset(codes + 128 * b, 0, 128 * sizeof(uint32_t));
+        memset(lens + 128 * b, 0, 128 * sizeof(int32_t));
+        nbits[b] = 0;
+        head_lens[b] = 0;
+        if (host) continue;
+        int d = hf_tree(c, id, code256, len256, NULL);
+        if (d > deepest) deepest = d;
+        int64_t bits = 0, head = 2;
+        for (int s = 0; s < 256; ++s) {
+            if (!present[s]) continue;
+            codes[128 * b + id[s]] = code256[s];
+            lens[128 * b + id[s]] = len256[s];
+            bits += c[s] * len256[s];
+            head += hf_digits(c[s]) + (s == 10 ? 3 : 2);
         }
-        longest[b] = deepest;
-        if (n == 1) continue;
-        /* kernel H's table: a preorder walk, left first, numbering the joins */
-        int parent[512], side[512], counter = 0, fits = 1;
-        top = 0;
-        stack[top] = h[0].node;
-        parent[top] = -1;
-        side[top++] = 0;
-        while (top > 0 && fits) {
-            --top;
-            int node = stack[top], p = parent[top], sd = side[top], ref;
-            if (node < 256) {
-                if (id[node] >= 128) fits = 0;
-                ref = 128 + id[node];
+        nbits[b] = bits;
+        head_lens[b] = head;
+    }
+    return deepest;
+}
+
+/*
+ * Each card block's header and separator (on_host 0), right-aligned in its
+ * row of heads (B x width); the rows of the host's blocks are left as they
+ * are. Returns 0, or -1 where a header does not fit its row.
+ */
+long rsn_huffman_headers(const int64_t *counts, const uint8_t *on_host, long B, long width, uint8_t *heads) {
+    for (long b = 0; b < B; ++b) {
+        if (on_host[b]) continue;
+        const int64_t *c = counts + 256 * b;
+        uint8_t *row = heads + width * b;
+        long at = width - 2;
+        if (at < 0) return -1;
+        row[at] = '\\';
+        row[at + 1] = '\n';
+        for (int s = 255; s >= 0; --s) {
+            if (c[s] <= 0) continue;
+            if (at < hf_digits(c[s]) + (s == 10 ? 3 : 2)) return -1;
+            if (s == 10) {
+                row[--at] = 'n';
+                row[--at] = '\\';
             } else {
-                if (counter >= 127) fits = 0;
-                ref = counter++;
-                stack[top] = right[node];
-                parent[top] = ref;
-                side[top++] = 1;
-                stack[top] = left[node];
-                parent[top] = ref;
-                side[top++] = 0;
+                row[--at] = (uint8_t)s;
             }
-            if (fits && p >= 0) words[p / 2] |= (uint32_t)ref << (16 * (p % 2) + 8 * sd);
+            row[--at] = '|';
+            for (int64_t v = c[s]; ; v /= 10) {
+                row[--at] = (uint8_t)('0' + v % 10);
+                if (v < 10) break;
+            }
         }
-        if (!fits) memset(words, 0, 64 * sizeof(uint32_t));
     }
     return 0;
+}
+
+/* Whether p (avail bytes, p[0] >= 0x80) begins a valid UTF-8 sequence, by Go's rules (formats/huffman go_decode_runes) */
+static int hf_valid_rune(const uint8_t *p, long avail) {
+    uint8_t b0 = p[0], lo = 0x80, hi = 0xBF;
+    int size;
+    if (b0 < 0xC2 || b0 > 0xF4) return 0;
+    if (b0 < 0xE0) {
+        size = 2;
+    } else if (b0 < 0xF0) {
+        size = 3;
+        if (b0 == 0xE0) lo = 0xA0;
+        if (b0 == 0xED) hi = 0x9F;
+    } else {
+        size = 4;
+        if (b0 == 0xF0) lo = 0x90;
+        if (b0 == 0xF4) hi = 0x8F;
+    }
+    if (avail < 2 || p[1] < lo || p[1] > hi) return 0;
+    for (int k = 2; k < size; ++k)
+        if (k >= avail || p[k] < 0x80 || p[k] > 0xBF) return 0;
+    return 1;
+}
+
+/*
+ * Decode: the header of each of B blocks, block b at data[starts[b],
+ * starts[b] + sizes[b]) of the n bytes of data, read as read_header reads it
+ * (formats/huffman._scan_header): digits build up a count across any other
+ * byte; at '|' the count is taken (0 for no digits) and the symbol follows,
+ * the two bytes "\n" as 10 where a byte follows them, else one byte; a later
+ * entry of a symbol overwrites the earlier. Where a symbol's byte is >= 0x80
+ * and begins no valid UTF-8 sequence (inside the header's end) the block is
+ * coded over its bytes (raw). The card takes a block (taken) whose separator
+ * and pad byte are inside it and whose header holds two symbols or more, each
+ * counted once or more, each ASCII, or a byte with an ASCII id in a raw block.
+ * Every other block (no separator or pad byte, '|' last, a count above
+ * HF_MAX_COUNT, a rune >= 128, one symbol, a zero count, too many bytes
+ * >= 0x80) is left to the caller: its row of each output is zero (ids the
+ * identity). No block of the container's writer counts more than its size,
+ * and 256 counts of at most HF_MAX_COUNT sum inside int64 in hf_tree.
+ * Out, a block each: freqs (256), ids (256), raw, back (128: each id's byte
+ * in a raw block), the pad byte, pstart (the payload's first byte - base),
+ * blens (the payload's bytes after the pad byte), kernel H's table (64).
+ * Returns the number of blocks taken.
+ */
+#define HF_MAX_COUNT ((int64_t)1 << 40)
+
+long rsn_huffman_read_headers(const uint8_t *data, long n_data, const int64_t *starts, const int64_t *sizes,
+                              long B, int64_t base, uint8_t *taken, int64_t *freqs, uint8_t *ids, uint8_t *raw,
+                              uint8_t *back, int32_t *pads, int64_t *pstart, int64_t *blens, int32_t *tables) {
+    long count = 0;
+    for (long b = 0; b < B; ++b) {
+        int64_t *f = freqs + 256 * b;
+        uint8_t *id = ids + 256 * b, *bk = back + 128 * b, present[256];
+        uint32_t code256[256], *words = (uint32_t *)(tables + 64 * b);
+        int32_t len256[256];
+        memset(f, 0, 256 * sizeof(int64_t));
+        memset(present, 0, sizeof present);
+        memset(bk, 0, 128);
+        memset(words, 0, 64 * sizeof(uint32_t));
+        for (int s = 0; s < 256; ++s) id[s] = (uint8_t)s;
+        taken[b] = 0;
+        raw[b] = 0;
+        pads[b] = 0;
+        pstart[b] = 0;
+        blens[b] = 0;
+        int64_t lo = starts[b], hi = starts[b] + sizes[b], cut = -1;
+        if (lo < 0 || sizes[b] < 0 || hi > n_data) continue;
+        for (int64_t k = lo; k + 1 < hi; ++k)
+            if (data[k] == '\\' && data[k + 1] == '\n') {
+                cut = k;
+                break;
+            }
+        if (cut < 0 || cut + 2 >= hi) continue;
+        const uint8_t *h = data + lo;
+        long n = (long)(cut - lo), i = 0;
+        int digits = 0, high = 0, stray = 0, ok = 1;
+        int64_t value = 0;
+        while (i < n && ok) {
+            uint8_t v = h[i];
+            if (v != '|') {
+                if (v >= '0' && v <= '9') {
+                    value = 10 * value + (v - '0');
+                    ++digits;
+                    if (value > HF_MAX_COUNT) ok = 0;
+                }
+                ++i;
+                continue;
+            }
+            int64_t freq = digits ? value : 0;
+            int sym;
+            value = 0;
+            digits = 0;
+            if (i + 2 < n && h[i + 1] == '\\' && h[i + 2] == 'n') {
+                sym = 10;
+                i += 3;
+            } else {
+                if (i + 1 >= n) {
+                    ok = 0;
+                    break;
+                }
+                sym = h[i + 1];
+                if (sym >= 0x80) {
+                    high = 1;
+                    long avail = n - (i + 1) < 4 ? n - (i + 1) : 4;
+                    if (!hf_valid_rune(h + i + 1, avail)) stray = 1;
+                }
+                i += 2;
+            }
+            f[sym] = freq;
+            present[sym] = 1;
+        }
+        int nsym = 0;
+        for (int s = 0; s < 256 && ok; ++s)
+            if (present[s]) {
+                ++nsym;
+                if (f[s] < 1) ok = 0;
+            }
+        if (ok && (nsym < 2 || (high && !stray) || (stray && !hf_ascii_ids(present, id)))) ok = 0;
+        if (!ok) {
+            memset(f, 0, 256 * sizeof(int64_t));
+            for (int s = 0; s < 256; ++s) id[s] = (uint8_t)s;
+            continue;
+        }
+        if (stray)
+            for (int s = 0; s < 256; ++s)
+                if (present[s]) bk[id[s]] = (uint8_t)s;
+        hf_tree(f, id, code256, len256, words);
+        taken[b] = 1;
+        raw[b] = (uint8_t)stray;
+        pads[b] = data[cut + 2];
+        pstart[b] = cut + 3 - base;
+        blens[b] = hi - (cut + 3);
+        ++count;
+    }
+    return count;
 }

@@ -5,20 +5,23 @@ the host from the block's symbol counts, and the work over every byte runs
 on the card, all blocks of a batch in one launch: kernel G
 (:func:`huffman_rows.encode_rows`) writes the payloads, kernel H
 (:func:`huffman_rows.decode_rows`) walks them back. The trees of a batch
-come from one call into the native runtime (``native.huffman_trees``: Go's
-container/heap mechanics in C, the trees of ``formats/huffman.build_tree``),
-which runs without the interpreter lock, so that two callers' trees do not
-wait for each other.
+(Go's container/heap mechanics in C, the trees of
+``formats/huffman.build_tree``) and the card blocks' headers (the text of
+``build_header`` and ``read_header``) come from the native runtime, a call
+a batch, which runs without the interpreter lock, so that two callers' trees
+do not wait for each other; no Python runs per card block.
 
 - Encode (:func:`encode_blocks`): one ``scatter_add_`` into a (B, 256)
   table counts every block's symbols on the card (faster on an H100 than a
   ``torch.bincount`` over ``block * 256 + byte``, whose bins contend more);
   one copy brings the table to the host. From it the host builds every
   block's tree and code table, exact bit count (so rows are sized exactly)
-  and header. The headers come back to the card as one buffer, and each
-  block's payload (header, separator, pad byte, bits) is framed there.
-- Decode (:func:`decode_blocks`): the host parses each block's header, then
-  builds every block's tree and packed child table; the payload rows are
+  and header (:func:`code_tables`). The headers come back to the card as one
+  buffer, and each block's payload (header, separator, pad byte, bits) is
+  framed there.
+- Decode (:func:`decode_blocks`): the host reads every block's header and
+  builds its tree and packed child table (``native.huffman_read_headers``);
+  the oracle decodes a block that call does not take. The payload rows are
   cut on the card from the container's body; the pad byte gives the start
   bit.
 
@@ -51,7 +54,8 @@ Each stage runs in its own ``record_function`` range: ``rsnb.enc.count``,
 (host), ``rsnb.dec.rows``, ``rsnb.dec.huffman`` (kernel H and its ``ok``
 flags). Every read of a card value and every copy from pageable memory
 runs inside an ``ops/device.sync`` range. ``trees`` counts the blocks whose
-tree the host built, per direction.
+tree the host built, per direction, and ``native_headers`` the card blocks
+whose header the native runtime wrote or read.
 """
 
 from __future__ import annotations
@@ -74,6 +78,8 @@ NEVER_UTF8 = np.array([0xC0, 0xC1, *range(0xF5, 0x100)])
 host_split = {"encode": 0, "decode": 0}
 # blocks whose tree the host built since the last reset, per direction
 trees = {"encode": 0, "decode": 0}
+# card blocks whose header the native runtime wrote (encode) or read (decode) since the last reset
+native_headers = {"encode": 0, "decode": 0}
 
 
 def reset_host_split() -> None:
@@ -84,22 +90,14 @@ def reset_trees() -> None:
     trees["encode"] = trees["decode"] = 0
 
 
+def reset_native_headers() -> None:
+    native_headers["encode"] = native_headers["decode"] = 0
+
+
 def _to(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     """A host array on ``dev``: from pageable memory, a copy that waits for the card's queue."""
     with sync("h2d"):
         return torch.from_numpy(a).to(dev)
-
-
-def _right_aligned(pieces: list[bytes], width: int) -> np.ndarray:
-    """(len(pieces), width) uint8 matrix, each piece ending at the last column."""
-    lens = np.array([len(p) for p in pieces], dtype=np.int64)
-    out = np.zeros((len(pieces), width), dtype=np.uint8)
-    flat = np.frombuffer(b"".join(pieces), dtype=np.uint8)
-    if flat.size:
-        row = np.repeat(np.arange(len(pieces)), lens)
-        within = np.arange(flat.size) - np.repeat(np.cumsum(lens) - lens, lens)
-        out[row, width - lens[row] + within] = flat
-    return out
 
 
 def ascii_ids(symbols) -> np.ndarray | None:
@@ -250,46 +248,23 @@ def count_symbols(x: torch.Tensor, lengths: torch.Tensor) -> np.ndarray:
         return counts.cpu().numpy().astype(np.int64)
 
 
-def code_tables(counts: np.ndarray, raw: np.ndarray | None = None):
+def code_tables(counts: np.ndarray, raw: np.ndarray | None = None) -> native.EncodeTables:
     """Each card block's code table and header, built on the host from its counts.
 
     ``raw`` marks the blocks coded over their bytes; the others are ASCII or
-    take the oracle. The trees come from ``native.huffman_trees``, Go's, all
-    blocks in one call. Returns (codes (B, 128) uint32, code_lens (B, 128)
-    int32, prefixes, on_host (B,) bool): ``prefixes[b]`` is the block's
-    header and separator, empty for the blocks the oracle codes
-    (``on_host``: a byte >= 0x80 in a block not in ``raw``, or a byte-coded
-    block with no :func:`ascii_ids`), whose tables stay zero. A byte-coded
-    card block's codes lie at its bytes' :func:`ascii_ids`.
+    take the oracle. One native call a batch (``native.huffman_encode_tables``)
+    builds every block's tree, Go's, its codes, exact bit count and header:
+    ``heads[b]`` ends with the block's ``formats/huffman.build_header`` and
+    separator. The oracle codes the blocks ``on_host``: a byte >= 0x80 in a
+    block not in ``raw``, or a byte-coded block with no :func:`ascii_ids`;
+    their tables stay zero. A byte-coded card block's codes lie at its bytes'
+    :func:`ascii_ids`. Raises ValueError, with the JAX container's message,
+    for a code longer than CONTAINER_CODE_BITS.
     """
-    B = len(counts)
-    raw = np.zeros(B, dtype=bool) if raw is None else raw
-    on_host = counts[:, huffman_rows.NSYM :].any(1) & ~raw
-    ids = np.tile(np.arange(256, dtype=np.uint8), (B, 1))
-    for b in np.nonzero(raw)[0].tolist():
-        at = ascii_ids(np.nonzero(counts[b])[0].tolist())
-        if at is None:
-            on_host[b] = True
-        else:
-            ids[b] = at
-    card = np.where(on_host[:, None], 0, counts)
-    codes256, lens256, _, longest = native.huffman_trees(card, ids)
-    if (longest > huffman_rows.CONTAINER_CODE_BITS).any():
+    t = native.huffman_encode_tables(counts, np.zeros(len(counts), dtype=bool) if raw is None else raw)
+    if t.longest > huffman_rows.CONTAINER_CODE_BITS:
         raise ValueError(f"huffman: code length beyond {huffman_rows.CONTAINER_CODE_BITS} bits")
-    codes = np.zeros((B, huffman_rows.NSYM), dtype=np.uint32)
-    code_lens = np.zeros((B, huffman_rows.NSYM), dtype=np.int32)
-    rows, syms = np.nonzero(card)
-    codes[rows, ids[rows, syms]] = codes256[rows, syms]
-    code_lens[rows, ids[rows, syms]] = lens256[rows, syms]
-    prefixes: list[bytes] = []
-    for b in range(B):
-        if on_host[b]:
-            prefixes.append(b"")
-            continue
-        present = np.nonzero(counts[b])[0]
-        freqs = dict(zip(present.tolist(), counts[b, present].tolist()))
-        prefixes.append(hf.build_header(freqs, raw=bool(raw[b])) + hf.SEPARATOR)
-    return codes, code_lens, prefixes, on_host
+    return t
 
 
 def _rows(x: torch.Tensor, blocks: np.ndarray) -> dict[int, np.ndarray]:
@@ -328,36 +303,37 @@ def encode_blocks(x: torch.Tensor, lengths: torch.Tensor):
         read = _rows(x, np.nonzero(wide & ~raw)[0])
         for b, row in read.items():
             raw[b] = not hf.go_lossless(row[: n[b]].tobytes())
-        codes, code_lens, prefixes, on_host = code_tables(counts, raw)
-        ids = {b: ascii_ids(np.nonzero(counts[b])[0].tolist()) for b in np.nonzero(raw & ~on_host)[0].tolist()}
+        t = code_tables(counts, raw)
     _build.count(trees, "encode", B)  # a host block's tree is built inside the oracle
-    host = np.nonzero(on_host)[0]
+    _build.count(native_headers, "encode", B - int(t.on_host.sum()))
+    heads, pre_lens = t.heads, t.head_lens.copy()
+    host = np.nonzero(t.on_host)[0]
     if host.size:
         _build.count(host_split, "encode", int(host.size))
         read.update(_rows(x, host[~np.isin(host, list(read))]))
-        for b in host.tolist():
-            prefixes[b] = hf.compress_block(read[b][: n[b]].tobytes())
-    nbits = (counts[:, : huffman_rows.NSYM] * code_lens).sum(1)  # 0 for the host blocks, whose tables are zero
-    for b, at in ids.items():
-        nbits[b] = (counts[b] * code_lens[b, at]).sum()
-    want = (nbits + 7) // 8
+        payloads = {b: hf.compress_block(read[b][: n[b]].tobytes()) for b in host.tolist()}
+        for b, p in payloads.items():
+            pre_lens[b] = len(p)
+        heads = np.pad(heads, ((0, 0), (int(pre_lens.max()) - heads.shape[1], 0)))
+        for b, p in payloads.items():
+            heads[b, heads.shape[1] - len(p) :] = np.frombuffer(p, dtype=np.uint8)
+    want = (t.nbits + 7) // 8
     with record_function("rsnb.enc.huffman"):
-        if ids:
+        which = np.nonzero(raw & ~t.on_host)[0]
+        if which.size:
             # the byte-coded blocks' bytes as their ids
-            which = np.array(sorted(ids))
             at = _to(which, dev)
-            x = x.index_copy(0, at, _to(np.stack([ids[b] for b in which]), dev).gather(1, x[at].to(torch.int64)))
+            x = x.index_copy(0, at, _to(t.ids[which], dev).gather(1, x[at].to(torch.int64)))
         # kernel G places the codes behind the pad of these totals and raises where its own differ
         rows, _, pads = huffman_rows.encode_rows(
-            x, lengths, _to(codes.view(np.int32), dev), _to(code_lens, dev),
-            max(1, int(want.max() + 3) // 4), bits=_to(nbits, dev),
+            x, lengths, _to(t.codes.view(np.int32), dev), _to(t.code_lens, dev),
+            max(1, int(want.max() + 3) // 4), bits=_to(t.nbits, dev),
         )
     with record_function("rsnb.enc.hframe"):
-        # row b: [prefix, right-aligned][pad byte][payload]; host blocks keep their prefix only
-        pre_lens = np.array([len(p) for p in prefixes], dtype=np.int64)
-        P = int(pre_lens.max())
-        tail = np.where(on_host, 0, 1 + want)
-        framed = torch.cat([_to(_right_aligned(prefixes, P), dev), pads.to(torch.uint8)[:, None], rows], dim=1)
+        # row b: [prefix, right-aligned][pad byte][payload]; a host block's prefix is its whole payload
+        P = heads.shape[1]
+        tail = np.where(t.on_host, 0, 1 + want)
+        framed = torch.cat([_to(heads, dev), pads.to(torch.uint8)[:, None], rows], dim=1)
         cols = torch.arange(framed.shape[1], device=dev)[None, :]
         lo = _to(P - pre_lens, dev)[:, None]
         hi = _to(P + tail, dev)[:, None]
@@ -391,44 +367,16 @@ def decode_blocks(flat: torch.Tensor, data: bytes, starts: np.ndarray, sizes: np
     """
     dev = flat.device
     B = len(sizes)
-    pstart = np.zeros(B, dtype=np.int64)  # payload bits start, relative to flat
-    blens = np.zeros(B, dtype=np.int64)
-    pads = np.zeros(B, dtype=np.int32)
     host: dict[int, bytes] = {}
-    back: dict[int, np.ndarray] = {}  # a byte-coded block's bytes by id
-    freqs_of = np.zeros((B, 256), dtype=np.int64)  # the card blocks' headers
-    ids = np.tile(np.arange(256, dtype=np.uint8), (B, 1))
-    sep = hf.SEPARATOR
     with record_function("rsnb.dec.tree"):
-        for b in range(B):
-            lo, hi = int(starts[b]), int(starts[b] + sizes[b])
-            cut = data.find(sep, lo, hi)
-            freqs, byte_coded, at = None, False, None
-            if cut >= 0 and cut + len(sep) < hi:
-                try:
-                    freqs, byte_coded = hf.read_header(data[lo:cut])
-                except ValueError:
-                    freqs = None
-                if byte_coded and freqs:
-                    at = ascii_ids(freqs)
-            # the card takes a tree of two leaves or more, each an ASCII symbol or a byte with an id,
-            # each counted once or more (a count of 0 leaves the card's trees)
-            if (not freqs or len(freqs) < 2 or min(freqs.values()) < 1
-                    or (at is None and max(freqs) >= huffman_rows.NSYM)):
-                # what the card does not take: the oracle decodes it or raises
-                host[b] = hf.decompress_block(data[lo:hi])
-                continue
-            freqs_of[b, list(freqs)] = list(freqs.values())
-            if at is not None:
-                ids[b] = at
-                back[b] = np.zeros(huffman_rows.NSYM, dtype=np.uint8)
-                back[b][at[list(freqs)]] = list(freqs)
-            pads[b] = data[cut + len(sep)]
-            pstart[b] = cut + len(sep) + 1 - starts[0]
-            blens[b] = hi - (cut + len(sep) + 1)
-        tables = native.huffman_trees(freqs_of, ids)[2]
+        # the card blocks' headers and trees in one native call; the oracle decodes what it does not take, or raises
+        h = native.huffman_read_headers(data, starts, sizes, int(starts[0]) if B else 0)
+        for b in np.nonzero(~h.taken)[0].tolist():
+            host[b] = hf.decompress_block(data[int(starts[b]) : int(starts[b] + sizes[b])])
+    pads, pstart, blens, tables = h.pads, h.pstart, h.blens, h.tables
     _build.count(trees, "decode", B)  # a host block's tree is built inside the oracle
     _build.count(host_split, "decode", len(host))
+    _build.count(native_headers, "decode", int(h.taken.sum()))
     with record_function("rsnb.dec.rows"):
         capb = max(4, -(-int(blens.max()) // 4) * 4)
         cols = torch.arange(capb, device=dev)[None, :]
@@ -444,10 +392,11 @@ def decode_blocks(flat: torch.Tensor, data: bytes, starts: np.ndarray, sizes: np
             ok = ok.cpu().numpy()
     if not ok.all():
         raise ValueError("huffman: bitstream ends inside a code")
-    if back:
-        which = np.array(sorted(back))
+    which = np.nonzero(h.raw)[0]
+    if which.size:
+        # a byte-coded block's ids back to its bytes
         at = _to(which, dev)
         ids_rows = rows[at].to(torch.int64) % huffman_rows.NSYM
-        rows = rows.index_copy(0, at, _to(np.stack([back[b] for b in which]), dev).gather(1, ids_rows))
+        rows = rows.index_copy(0, at, _to(h.back[which], dev).gather(1, ids_rows))
     with sync("lengths"):
         return rows, counts.cpu().numpy().astype(np.int64), host

@@ -225,8 +225,9 @@ def _tree_case(blocks: list[bytes], S: int | None = None, capw: int | None = Non
     counts = np.zeros((len(blocks), 256), dtype=np.int64)
     for i, blk in enumerate(blocks):
         counts[i] = np.bincount(np.frombuffer(blk, np.uint8), minlength=256)
-    codes, code_lens, _, on_host = huffman_blocks.code_tables(counts)
-    assert not on_host.any()
+    t = huffman_blocks.code_tables(counts)
+    codes, code_lens = t.codes, t.code_lens
+    assert not t.on_host.any()
     bits = (counts[:, :128] * code_lens).sum(1)
     capw = capw or max(1, int((bits.max() + 7) // 8 + 3) // 4)
     return x, lengths, codes.view(np.int32), code_lens, capw, bits, blocks
