@@ -9,9 +9,9 @@
  * One change from the original, which alters no byte it writes correctly:
  * the "<D,L>" token buffers hold two longs of 20 digits each (the original's
  * 16 bytes overflow once D and L have 14 digits between them, at windows of
- * about 10^6). Additions, the port's own (the last two sections):
- * rsn_huffman_trees, Go's Huffman trees of a batch of byte-count tables, and
- * the text codec of the container's Huffman block headers, a batch a call
+ * about 10^6). Additions, the port's own (the last two sections): Go's
+ * Huffman tree of a byte-count table (hf_tree), and the text codec of the
+ * container's Huffman block headers with each block's tree, a batch a call
  * (rsn_huffman_encode_tables, rsn_huffman_headers, rsn_huffman_read_headers).
  *
  * Exported ABI (ctypes): every function returns the number of bytes written
@@ -995,7 +995,7 @@ long rsn_dmc_decompress(const uint8_t *in, long n, uint8_t **out_p, long *out_le
 }
 
 /* ------------------------------------------------------------------ */
-/* Huffman trees of a batch of byte-count tables (the port's own)      */
+/* Huffman trees of byte-count tables (the port's own)                */
 /*
  * Go's buildTree (compressor/huffman/huffman.go:58) on Go's container/heap,
  * one tree a block, for the RSNB container's Huffman blocks on the card
@@ -1006,15 +1006,14 @@ long rsn_dmc_decompress(const uint8_t *in, long n, uint8_t **out_p, long *out_le
  * Less compares counts only; up's parent is (j - 1) / 2, which C, as Go,
  * truncates toward zero, so the climb stops at the root.
  *
- * counts: B x 256 byte counts (a block of zeros gets no tree: longest -1).
- * ids: B x 256, the id kernel H takes for each symbol (its leaf is 128 + id).
- * Out, a block each: codes and lens, B x 256, each symbol's code (its lens
- * low bits, the first bit the most significant; 0 past 32 bits) and length,
- * 0 for an absent symbol and for the lone symbol of a one-leaf tree;
- * tables, B x 64, kernel H's child table (internal nodes numbered in
- * preorder from 0, word j holding nodes 2j and 2j + 1 in its low and high
- * half, each left | right << 8), all zero where an id is 128 or more or the
- * tree has one leaf; longest, B, the deepest code.
+ * A block's 256 byte counts (a block of zeros gets no tree: -1) and the id
+ * kernel H takes for each symbol (its leaf is 128 + id) give each symbol's
+ * code (its len low bits, the first bit the most significant; 0 past 32
+ * bits) and length, 0 for an absent symbol and for the lone symbol of a
+ * one-leaf tree; kernel H's child table, 64 words (internal nodes numbered
+ * in preorder from 0, word j holding nodes 2j and 2j + 1 in its low and
+ * high half, each left | right << 8), all zero where an id is 128 or more
+ * or the tree has one leaf; and the deepest code.
  */
 
 typedef struct {
@@ -1142,14 +1141,6 @@ static int hf_tree(const int64_t *c, const uint8_t *id, uint32_t *code, int32_t 
     }
     if (!fits) memset(words, 0, 64 * sizeof(uint32_t));
     return deepest;
-}
-
-long rsn_huffman_trees(const int64_t *counts, long B, const uint8_t *ids, uint32_t *codes, int32_t *lens,
-                       int32_t *tables, int32_t *longest) {
-    for (long b = 0; b < B; ++b)
-        longest[b] = hf_tree(counts + 256 * b, ids + 256 * b, codes + 256 * b, lens + 256 * b,
-                             (uint32_t *)(tables + 64 * b));
-    return 0;
 }
 
 /* ------------------------------------------------------------------ */

@@ -7,7 +7,13 @@ Every entry point of the port takes an explicit ``device`` and passes it
 through :func:`resolve_device`.
 
 :func:`h2d` and :func:`d2h` move whole buffers between Python bytes and a
-device, for the container and the single-stream codecs alike.
+device, for the container and the single-stream codecs alike. Every result
+that comes back from a device takes one route: :func:`host_buffer` allocates
+its host buffer (pinned when a card writes into it), :func:`put` writes each
+piece, a tensor on any device or bytes, at its offset, and :func:`to_bytes`
+makes the returned ``bytes``. :func:`d2h` is that route for one tensor; the
+RSNB container (``parallel/blocks.py``) puts its header and every block
+range's payloads, or decoded bytes, into one buffer.
 
 Every call in which the host waits for the card runs inside :func:`sync`,
 a ``torch.profiler.record_function`` range ``sync.<what>`` named after
@@ -37,6 +43,7 @@ import threading
 import warnings
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -108,13 +115,32 @@ def h2d(buf, device: torch.device) -> torch.Tensor:
         return host.to(device)
 
 
-def d2h(t: torch.Tensor) -> bytes:
-    """uint8 tensor -> bytes; from the card through pinned host memory."""
-    if t.device.type == "cuda":
-        with record_function("copy.pin"):
-            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+def host_buffer(n: int, devices) -> torch.Tensor:
+    """An ``n``-byte uint8 host buffer for a result's pieces (:func:`put`), allocated in ``copy.pin``:
+    pinned when any of ``devices`` is a card, so that a card's piece is copied straight into it."""
+    with record_function("copy.pin"):
+        return torch.empty(n, dtype=torch.uint8, pin_memory=any(torch.device(d).type == "cuda" for d in devices))
+
+
+def put(out: torch.Tensor, at: int, piece) -> int:
+    """Copy ``piece`` (a 1-D uint8 tensor on any device, or bytes) into ``out[at:]``, the host buffer of
+    :func:`host_buffer`, as far as ``out`` reaches; -> the piece's length. A tensor's copy runs in
+    ``sync.d2h``."""
+    n = len(piece)
+    room = max(0, min(n, out.numel() - at))
+    if room and torch.is_tensor(piece):
         with sync("d2h"):
-            host.copy_(t)
+            out[at : at + room].copy_(piece[:room])
+    elif room:
+        out.numpy()[at : at + room] = np.frombuffer(piece, dtype=np.uint8, count=room)
+    return n
+
+
+def d2h(t: torch.Tensor) -> bytes:
+    """1-D uint8 tensor -> bytes; from a card through a pinned :func:`host_buffer` and :func:`put`."""
+    if t.device.type != "cpu":
+        host = host_buffer(t.numel(), [t.device])
+        put(host, 0, t)
         t = host
     with record_function("copy.bytes"):
         return to_bytes(t)

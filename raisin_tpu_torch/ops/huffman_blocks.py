@@ -53,9 +53,8 @@ Each stage runs in its own ``record_function`` range: ``rsnb.enc.count``,
 ``rsnb.enc.hframe`` (the payloads framed on the card); ``rsnb.dec.tree``
 (host), ``rsnb.dec.rows``, ``rsnb.dec.huffman`` (kernel H and its ``ok``
 flags). Every read of a card value and every copy from pageable memory
-runs inside an ``ops/device.sync`` range. ``trees`` counts the blocks whose
-tree the host built, per direction, and ``native_headers`` the card blocks
-whose header the native runtime wrote or read.
+runs inside an ``ops/device.sync`` range. ``native_headers`` counts the card
+blocks whose header the native runtime wrote or read.
 """
 
 from __future__ import annotations
@@ -76,18 +75,12 @@ from raisin_tpu_torch.ops.device import sync
 NEVER_UTF8 = np.array([0xC0, 0xC1, *range(0xF5, 0x100)])
 # blocks that took the host oracle since the last reset, per direction
 host_split = {"encode": 0, "decode": 0}
-# blocks whose tree the host built since the last reset, per direction
-trees = {"encode": 0, "decode": 0}
 # card blocks whose header the native runtime wrote (encode) or read (decode) since the last reset
 native_headers = {"encode": 0, "decode": 0}
 
 
 def reset_host_split() -> None:
     host_split["encode"] = host_split["decode"] = 0
-
-
-def reset_trees() -> None:
-    trees["encode"] = trees["decode"] = 0
 
 
 def reset_native_headers() -> None:
@@ -304,7 +297,6 @@ def encode_blocks(x: torch.Tensor, lengths: torch.Tensor):
         for b, row in read.items():
             raw[b] = not hf.go_lossless(row[: n[b]].tobytes())
         t = code_tables(counts, raw)
-    _build.count(trees, "encode", B)  # a host block's tree is built inside the oracle
     _build.count(native_headers, "encode", B - int(t.on_host.sum()))
     heads, pre_lens = t.heads, t.head_lens.copy()
     host = np.nonzero(t.on_host)[0]
@@ -374,7 +366,6 @@ def decode_blocks(flat: torch.Tensor, data: bytes, starts: np.ndarray, sizes: np
         for b in np.nonzero(~h.taken)[0].tolist():
             host[b] = hf.decompress_block(data[int(starts[b]) : int(starts[b] + sizes[b])])
     pads, pstart, blens, tables = h.pads, h.pstart, h.blens, h.tables
-    _build.count(trees, "decode", B)  # a host block's tree is built inside the oracle
     _build.count(host_split, "decode", len(host))
     _build.count(native_headers, "decode", int(h.taken.sum()))
     with record_function("rsnb.dec.rows"):

@@ -36,7 +36,12 @@ the card with kernel F, where the JAX package walks them on the host.
 The host handles the input and the payloads as whole buffers, never as one
 Python object per block: the card reads the input and the container's
 body straight from the Python bytes, cuts and pads the blocks itself, and
-the container or the decoded output comes back in one copy. The Huffman
+the container or the decoded output comes back by one route in both
+directions: one host buffer (``ops/device.host_buffer``, pinned for a
+card), into which the header, written on the host, and every block range's
+payloads or decoded bytes are put at their offsets (``ops/device.put``),
+then one copy into the returned ``bytes``. Each pipeline's stages, a token
+stage and a coder stage, are picked in one place (:func:`_stages`). The Huffman
 pipelines add per-block host work on small tables only: the tree, the
 code table and the header (``ops/huffman_blocks.py``).
 
@@ -60,6 +65,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import struct
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -67,9 +73,7 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from raisin_tpu_torch.ops import arithmetic_rows, escape, huffman_blocks, lzss_decode, lzss_match, pipeline
-from raisin_tpu_torch.ops.device import d2h as _d2h
-from raisin_tpu_torch.ops.device import h2d as _h2d
-from raisin_tpu_torch.ops.device import resolve_device, sync, to_bytes
+from raisin_tpu_torch.ops.device import h2d, host_buffer, put, resolve_device, sync, to_bytes
 from raisin_tpu_torch.parallel.mesh import Mesh, block_range
 
 MAGIC = b"RSNB"
@@ -149,6 +153,62 @@ def _payload_rows(flat: torch.Tensor, lens: torch.Tensor, width: int) -> torch.T
     return rows
 
 
+class Stages(NamedTuple):
+    """A card pipeline as two stages (:func:`_stages`), each named by what runs.
+
+    Encode: the token stage (``tokens``) gives the coder its input: the
+    block bytes (None), the escape and kernels D and E (:data:`CARD`), or
+    the native C runtime's tokens past the card's search (:data:`NATIVE`);
+    then the coder stage selects the tokens as they are (None), codes them
+    in kernels A and B (``"arithmetic"``) or kernel G (``"huffman"``).
+    Decode runs them back: kernel C, kernel H or the payload rows, then,
+    for ``tokens`` not None, kernel F and the unescape, else a select.
+    """
+
+    tokens: str | None
+    coder: str | None
+    aux: bool  # the container writes (encode) or carries (decode) the aux table of token lengths
+    step_bytes: tuple[int, int]  # CUDA_BYTES_PER_STEP's entry
+
+
+CARD, NATIVE = "card", "native"
+
+
+def _stages(algorithms: tuple[str, ...], window: int, aux: bool | None = None) -> Stages | None:
+    """The card's stages of a pipeline; None where it codes block by block through the engine.
+
+    ``aux`` is None on encode and, on decode, whether the container has an
+    aux table. A pipeline outside :data:`PIPELINES` goes block by block.
+    Encode: past the card's search (``lzss_match.MAX_WINDOW``) ``lzss`` and
+    ``lzss,arithmetic`` go block by block, as the JAX package codes them
+    past its own, and ``lzss,huffman`` takes the native runtime's tokens;
+    the aux table is written as the JAX package writes it, for
+    ``lzss,huffman`` and for ``lzss,arithmetic`` up to
+    :data:`LZ_ARITH_AUX_MAX_WINDOW`. Decode: an ``lzss,arithmetic``
+    container without an aux table goes block by block, since kernel C needs
+    each block's token count.
+    """
+    if algorithms not in PIPELINES:
+        return None
+    lzss = algorithms[0] == "lzss"
+    coder = None if algorithms[-1] == "lzss" else algorithms[-1]
+    if aux is None:
+        tokens = None
+        if lzss and window <= lzss_match.MAX_WINDOW:
+            tokens = CARD
+        elif lzss and coder == "huffman":
+            tokens = NATIVE
+        elif lzss:
+            return None
+        aux = algorithms in WITH_AUX and not (algorithms == LZ_ARITH and window > LZ_ARITH_AUX_MAX_WINDOW)
+    else:
+        aux = aux and algorithms in WITH_AUX
+        if lzss and coder == "arithmetic" and not aux:
+            return None
+        tokens = CARD if lzss else None
+    return Stages(tokens, coder, aux, CUDA_BYTES_PER_STEP[algorithms])
+
+
 def _native_tokens(x, n, window: int):
     """Each block's LZSS tokens at a window past the card's search, through ``compress_bytes`` under the
     preferred backend (native C under auto); -> (tok, tok_len) as ``pipeline.lzss_tokens`` gives them."""
@@ -160,38 +220,36 @@ def _native_tokens(x, n, window: int):
         tokens = [compress_bytes(b[:k].tobytes(), LZ, window=window, device=x.device) for b, k in zip(blocks, lens)]
         with sync("h2d"):
             tok_len = torch.tensor([len(t) for t in tokens], dtype=torch.int32, device=x.device)
-        return _payload_rows(_h2d(b"".join(tokens), x.device), tok_len, max(1, max(len(t) for t in tokens))), tok_len
+        return _payload_rows(h2d(b"".join(tokens), x.device), tok_len, max(1, max(len(t) for t in tokens))), tok_len
 
 
-def _encode_batch(x, n, algorithms, window: int, first_block: int):
-    """Encode one batch of blocks -> (concatenated payloads on the device, sizes, token lengths or None)."""
-    if algorithms == LZ_HUFF and window > lzss_match.MAX_WINDOW:
-        tok, tok_len = _native_tokens(x, n, window)
-        return (*huffman_blocks.encode_blocks(tok, tok_len), _lengths(tok_len).astype(np.int64))
-    if algorithms[0] == "lzss":
+def _encode_batch(x, n, stages: Stages, window: int, first_block: int):
+    """Encode one batch of blocks, the token stage then the coder stage -> (concatenated payloads on the
+    device, sizes, token lengths where the container writes them, else None)."""
+    if stages.tokens == NATIVE:
+        x, n = _native_tokens(x, n, window)
+    elif stages.tokens == CARD:
         with record_function("rsnb.enc.escape"):
             x, n = escape.escape_blocks(x, n)
-    if algorithms == HUFF:
-        return (*huffman_blocks.encode_blocks(x, n), None)
-    if algorithms == LZ_HUFF:
-        tok, tok_len = pipeline.lzss_tokens(x, n, window)
-        return (*huffman_blocks.encode_blocks(tok, tok_len), _lengths(tok_len).astype(np.int64))
-    if algorithms == LZ:
-        tok, tok_len = pipeline.lzss_tokens(x, n, window)
+        if stages.coder != "arithmetic":  # lzss,arithmetic's coder call runs D and E itself
+            x, n = pipeline.lzss_tokens(x, n, window)
+    if stages.coder == "huffman":
+        flat, sizes = huffman_blocks.encode_blocks(x, n)
+        return flat, sizes, _lengths(n) if stages.aux else None
+    if stages.coder is None:
         with record_function("rsnb.enc.select"):
-            return _rows_payloads(tok, tok_len), _lengths(tok_len), None
-    tok_len = None
-    if algorithms == ARITH:
+            return _rows_payloads(x, n), _lengths(n), None
+    if stages.tokens:
+        rows, byte_lens, n, oflow = pipeline.lzss_arith_encode_rows(x, n, window)
+    else:
         with record_function("rsnb.enc.coder"):
             # one column more for EOF after a full block
             rows, byte_lens, oflow = pipeline.arith_encode_rows(F.pad(x, (0, 1)), n)
-    else:
-        rows, byte_lens, tok_len, oflow = pipeline.lzss_arith_encode_rows(x, n, window)
     with record_function("rsnb.enc.select"):
         body = _rows_payloads(rows, byte_lens)
         with sync("lengths"):
             oflow, byte_lens = oflow.cpu().numpy(), byte_lens.cpu().numpy()
-            tok_len = None if tok_len is None else tok_len.cpu().numpy()
+            tok_len = n.cpu().numpy() if stages.aux else None
         _check_no_overflow(oflow, first_block)
         return body, byte_lens, tok_len
 
@@ -219,34 +277,33 @@ def _check_no_overflow(oflow: np.ndarray, first_block: int) -> None:
 
 
 def _encode_rows(
-    data: bytes, block_size: int, device: torch.device, algorithms: tuple[str, ...], window: int,
-    first_block: int = 0,
-) -> tuple[np.ndarray, torch.Tensor, np.ndarray | None]:
-    """Encode every block -> (payload sizes, concatenated payloads on ``device``, token lengths).
+    data: bytes, block_size: int, device: torch.device, stages: Stages, window: int, first_block: int = 0,
+) -> tuple[np.ndarray, list[torch.Tensor], np.ndarray | None]:
+    """Encode every block -> (payload sizes, each batch's concatenated payloads on ``device``, token lengths).
 
-    The token lengths (None for pipelines without an aux table) become the
+    The token lengths (None for containers without an aux table) become the
     container's aux table. ``first_block`` is the container index of the
     first block, for error messages.
     """
     W, lengths = _block_lengths(len(data), block_size)
     B = len(lengths)
-    maxb = _batch_blocks(device, CUDA_BYTES_PER_STEP[algorithms][0], W + 1)
+    maxb = _batch_blocks(device, stages.step_bytes[0], W + 1)
     view = memoryview(data)
     sizes, bodies, toks = [], [], []
     for lo in range(0, B, maxb):
         hi = min(lo + maxb, B)
         with record_function("rsnb.enc.h2d"):
-            x = _h2d(view[lo * W : hi * W], device)
+            x = h2d(view[lo * W : hi * W], device)
             # zeros past the ragged end
             x = F.pad(x, (0, (hi - lo) * W - x.numel())).view(hi - lo, W)
             with sync("h2d"):
                 n = torch.from_numpy(lengths[lo:hi]).to(device)
-        body, got, tok = _encode_batch(x, n, algorithms, window, first_block + lo)
+        body, got, tok = _encode_batch(x, n, stages, window, first_block + lo)
         sizes.append(got)
         bodies.append(body)
         if tok is not None:
             toks.append(tok)
-    return np.concatenate(sizes), torch.cat(bodies), np.concatenate(toks) if toks else None
+    return np.concatenate(sizes), bodies, np.concatenate(toks) if toks else None
 
 
 def _lzss_tail(tok: torch.Tensor, tok_len: torch.Tensor, out_lens: np.ndarray, first_block: int) -> torch.Tensor:
@@ -283,115 +340,84 @@ def _decode_arith(flat, sizes, coded, device, lo: int):
     return syms, clens
 
 
-def _decode_huffman(flat, data, starts, sizes, cap_out: int, lzss: bool, tok_lens, device, lo: int):
-    """Kernel H over one batch -> (rows, counts on the device, blocks from the host oracle).
+def _decode_huffman(flat, data, starts, sizes, cap_out: int, tok_lens, tokens: bool, device, lo: int):
+    """Kernel H over one batch -> (rows, counts on the device), the host oracle's blocks in their rows.
 
-    For lzss,huffman the host blocks' token streams join the card's rows
-    (their dict is then empty) and, with an aux table, every block's token
-    count must equal its entry.
+    With an aux table (``tok_lens``), every block's count must equal its
+    entry. Where the rows hold bytes, not ``tokens``, they widen to the
+    oracle's longest block: the JAX package's Go stream of a block that is
+    not valid UTF-8 decodes to more bytes than the block, and they count in
+    the container's total, as the JAX package counts them.
     """
     rows, counts, host = huffman_blocks.decode_blocks(flat, data, starts, sizes, cap_out, lo)
-    if lzss:
-        for b, tokens in host.items():
-            counts[b] = len(tokens)
-            if 0 < len(tokens) <= rows.shape[1]:
-                with sync("h2d"):
-                    rows[b, : len(tokens)] = torch.frombuffer(bytearray(tokens), dtype=torch.uint8).to(device)
-        host = {}
-        wrong = np.nonzero(counts != tok_lens)[0] if tok_lens is not None else []
-        if len(wrong):
-            i = wrong[0]
-            raise ValueError(
-                f"container: block {lo + i} decoded {counts[i]} token bytes, its aux table says {tok_lens[i]}"
-            )
+    longest = max((len(decoded) for decoded in host.values()), default=0)
+    if not tokens and longest > rows.shape[1]:
+        rows = F.pad(rows, (0, longest - rows.shape[1]))
+    for b, decoded in host.items():
+        counts[b] = len(decoded)
+        if 0 < len(decoded) <= rows.shape[1]:
+            with sync("h2d"):
+                rows[b, : len(decoded)] = torch.frombuffer(bytearray(decoded), dtype=torch.uint8).to(device)
+    wrong = np.nonzero(counts != tok_lens)[0] if tok_lens is not None else []
+    if len(wrong):
+        i = wrong[0]
+        raise ValueError(f"container: block {lo + i} decoded {counts[i]} token bytes, its aux table says {tok_lens[i]}")
     over = np.nonzero(counts > rows.shape[1])[0]
     if over.size:
         i = over[0]
         raise ValueError(f"container: block {lo + i} decoded {counts[i]} bytes, more than its row holds")
     with sync("h2d"):
-        return rows, torch.from_numpy(counts.astype(np.int32)).to(device), host
-
-
-def _put(out: torch.Tensor, at: int, piece) -> int:
-    """Copy ``piece`` (a uint8 tensor on any device, or bytes) into ``out[at:]``, as far as ``out``
-    reaches; -> its length. A card's piece is copied straight into ``out`` (pinned host memory)."""
-    n = len(piece)
-    room = max(0, min(n, out.numel() - at))
-    if room and torch.is_tensor(piece):
-        with record_function("rsnb.dec.d2h"), sync("d2h"):
-            out[at : at + room].copy_(piece[:room])
-    elif room:
-        out.numpy()[at : at + room] = np.frombuffer(piece, dtype=np.uint8, count=room)
-    return n
+        return rows, torch.from_numpy(counts.astype(np.int32)).to(device)
 
 
 def _decode_rows(
-    data: bytes, pos: int, algorithms: tuple[str, ...], sizes: np.ndarray, out_lens: np.ndarray,
+    data: bytes, pos: int, stages: Stages, sizes: np.ndarray, out_lens: np.ndarray,
     device: torch.device, tok_lens: np.ndarray | None, out: torch.Tensor, first_block: int = 0,
 ) -> int:
     """Decode the concatenated payloads at ``data[pos:]`` of known decoded lengths into ``out``,
     the host buffer of these blocks' bytes; -> the bytes they decoded to.
 
     ``tok_lens`` is the aux table of the containers that carry one. The
-    LZSS pipelines end in kernel F and the escape decode on the whole
-    batch, the JAX package's ``_dec_stage`` and ``_dec_tail``.
+    coder stage gives each block's tokens, or bytes, as a row; the LZSS
+    pipelines end in kernel F and the escape decode on the whole batch, the
+    JAX package's ``_dec_stage`` and ``_dec_tail``, the others in a select.
     ``first_block`` is the container index of the first block, for error
     messages.
     """
     B = len(sizes)
-    lzss = algorithms[0] == "lzss"
-    steps = max(int(sizes.max()) + 1, int(out_lens.max()) * (2 if lzss else 1))
+    grow = 2 if stages.tokens else 1  # escaping at most doubles a block
+    steps = max(int(sizes.max()) + 1, int(out_lens.max()) * grow)
     if tok_lens is not None:
         steps = max(steps, int(tok_lens.max()) + 1)
-    maxb = _batch_blocks(device, CUDA_BYTES_PER_STEP[algorithms][1], steps)
+    maxb = _batch_blocks(device, stages.step_bytes[1], steps)
     offsets = np.concatenate([[0], np.cumsum(sizes)])
     done = 0
     for lo in range(0, B, maxb):
         hi = min(lo + maxb, B)
         with record_function("rsnb.dec.h2d"):
-            flat = _h2d(memoryview(data)[pos + offsets[lo] : pos + offsets[hi]], device)
+            flat = h2d(memoryview(data)[pos + offsets[lo] : pos + offsets[hi]], device)
         part = slice(lo, hi)
         index = first_block + lo
-        if algorithms in (ARITH, LZ_ARITH):
-            coded = out_lens[part] if tok_lens is None else tok_lens[part]
+        tok_part = None if tok_lens is None else tok_lens[part]
+        if stages.coder == "arithmetic":
+            coded = out_lens[part] if tok_part is None else tok_part
             tok, tok_len = _decode_arith(flat, sizes[part], coded, device, index)
-            if algorithms == ARITH:
-                done += _put(out, done, _rows_payloads(tok, tok_len))
-                continue
-        elif algorithms == LZ:
+        elif stages.coder == "huffman":
+            # a block's decoded bytes: its aux entry, or its length, twice for escaped tokens
+            cap = int(out_lens[part].max()) * grow if tok_part is None else int(tok_part.max())
+            tok, tok_len = _decode_huffman(flat, data, pos + offsets[lo:hi], sizes[part], cap, tok_part,
+                                           bool(stages.tokens), device, index)
+        else:
             with sync("h2d"):
                 tok_len = torch.from_numpy(sizes[part].astype(np.int32)).to(device)
             tok = _payload_rows(flat, tok_len, int(sizes[part].max()))
+        if stages.tokens:
+            piece = _lzss_tail(tok, tok_len, out_lens[part], index)
         else:
-            # a block's decoded bytes: its length, or its aux entry; escaped
-            # tokens without an aux table stay under twice the block
-            if tok_lens is not None:
-                cap = int(tok_lens[part].max())
-            else:
-                cap = int(out_lens[part].max()) * (2 if lzss else 1)
-            tok, tok_len, host = _decode_huffman(
-                flat, data, pos + offsets[lo:hi], sizes[part], cap, lzss,
-                None if tok_lens is None else tok_lens[part], device, index,
-            )
-            if algorithms == HUFF:
-                done += _put(out, done, _huffman_output(tok, tok_len, host))
-                continue
-        done += _put(out, done, _lzss_tail(tok, tok_len, out_lens[part], index))
+            piece = _rows_payloads(tok, tok_len)
+        with record_function("rsnb.dec.d2h"):
+            done += put(out, done, piece)
     return done
-
-
-def _huffman_output(rows: torch.Tensor, counts: torch.Tensor, host: dict[int, bytes]) -> torch.Tensor | bytes:
-    """The decoded bytes of a ("huffman",) batch, the host oracle's blocks in their places: on the
-    device when the card decoded every block."""
-    flat = _rows_payloads(rows, counts)
-    if not host:
-        return flat
-    with record_function("rsnb.dec.d2h"):
-        flat = _d2h(flat)
-    pieces = _split(flat, _lengths(counts).tolist())
-    for b, decoded in host.items():
-        pieces[b] = decoded
-    return b"".join(pieces)
 
 
 # ---------------------------------------------------------------------------
@@ -433,31 +459,31 @@ def compress_container(
         raise ValueError("block_size must be positive")
     devices = _devices(mesh, device)
     num_blocks = max(1, -(-len(data) // block_size))
-    if algorithms not in PIPELINES or (algorithms in (LZ, LZ_ARITH) and window > lzss_match.MAX_WINDOW):
-        with record_function("rsnb.compress"):
-            parts = _over_ranges(num_blocks, devices, lambda lo, hi, dev: _encode_per_block(
-                memoryview(data)[lo * block_size : hi * block_size], algorithms, block_size, window, dev))
-            return assemble_container([p for part in parts for p in part], [], algorithms, block_size, window,
-                                      len(data))
-    if algorithms[0] == "lzss" and window <= lzss_match.MAX_WINDOW:
+    stages = _stages(algorithms, window)
+    if stages is not None and stages.tokens == CARD:
         lzss_match.check_window(window)
+
+    def encode(lo, hi, dev):
+        blocks = memoryview(data)[lo * block_size : hi * block_size]
+        if stages is None:
+            return _encode_per_block(blocks, algorithms, block_size, window, dev)
+        return _encode_rows(blocks, block_size, dev, stages, window, lo)
+
     with record_function("rsnb.compress"):
-        parts = _over_ranges(num_blocks, devices, lambda lo, hi, dev: _encode_rows(
-            memoryview(data)[lo * block_size : hi * block_size], block_size, dev, algorithms, window, lo))
+        parts = _over_ranges(num_blocks, devices, encode)
         sizes = np.concatenate([part[0] for part in parts])
-        toks = [part[2] for part in parts if part[2] is not None]
         with record_function("rsnb.enc.frame"):
-            aux = [np.concatenate(toks)] if _writes_aux(algorithms, window) else []
+            aux = [np.concatenate([part[2] for part in parts])] if stages is not None and stages.aux else []
             head = _header(sizes, aux, algorithms, block_size, window, len(data))
-            if len(parts) == 1:  # framed on the device: the container comes back in one copy
-                body = parts[0][1]
-                framed = torch.cat([_h2d(head, body.device), body])
+        # the header and every range's payloads into one host buffer (pinned for the cards' copies)
+        out = host_buffer(len(head) + int(sizes.sum()), devices)
         with record_function("rsnb.enc.d2h"):
-            if len(parts) == 1:
-                return _d2h(framed)
-            bodies = [_d2h(part[1]) for part in parts]
+            at = put(out, 0, head)
+            for part in parts:
+                for piece in part[1]:
+                    at += put(out, at, piece)
         with record_function("copy.bytes"):
-            return b"".join([head, *bodies])
+            return to_bytes(out)
 
 
 def _devices(mesh: Mesh | None, device) -> list[torch.device]:
@@ -503,19 +529,16 @@ def _over_ranges(num_blocks: int, devices: list[torch.device], fn) -> list:
 
 
 def _encode_per_block(data, algorithms: tuple[str, ...], block_size: int, window: int,
-                      device: torch.device) -> list[bytes]:
+                      device: torch.device) -> tuple[np.ndarray, list[bytes], None]:
     """A pipeline without a device path, block by block through ``compress_bytes`` under the
-    preferred backend, as the JAX package encodes it (raisin_tpu/parallel/blocks.py:973-980)."""
+    preferred backend, as the JAX package encodes it (raisin_tpu/parallel/blocks.py:973-980);
+    -> (payload sizes, payloads, None)."""
     from raisin_tpu_torch.engine.core import compress_bytes
 
     with record_function("rsnb.enc.host"):
         blocks = [bytes(data[i : i + block_size]) for i in range(0, len(data), block_size)] or [b""]
-        return [compress_bytes(b, algorithms, window=window, device=device) for b in blocks]
-
-
-def _writes_aux(algorithms: tuple[str, ...], window: int) -> bool:
-    """Whether the container carries the aux table of token lengths, as the JAX package decides."""
-    return algorithms in WITH_AUX and not (algorithms == LZ_ARITH and window > LZ_ARITH_AUX_MAX_WINDOW)
+        payloads = [compress_bytes(b, algorithms, window=window, device=device) for b in blocks]
+        return np.array([len(p) for p in payloads], dtype=np.int64), payloads, None
 
 
 def _header(sizes, aux, algorithms, block_size: int, window: int, orig_size: int) -> bytes:
@@ -595,23 +618,26 @@ def decompress_container(data: bytes, mesh: Mesh | None = None,
         return _decompress_container(data, devices)
 
 
-def _decode_per_block(data: bytes, pos: int, sizes, algorithms: tuple[str, ...], device: torch.device) -> bytes:
-    """Block by block through ``decompress_bytes`` under the preferred backend, as the JAX package
-    decodes a pipeline without a device path and an lzss,arithmetic container without token
-    lengths (raisin_tpu/parallel/blocks.py:1084): kernel C needs the step count."""
+def _decode_per_block(data: bytes, pos: int, sizes, algorithms: tuple[str, ...], device: torch.device,
+                      out: torch.Tensor) -> int:
+    """Block by block through ``decompress_bytes`` under the preferred backend into ``out``, as the JAX
+    package decodes a pipeline without a device path and an lzss,arithmetic container without token
+    lengths (raisin_tpu/parallel/blocks.py:1084): kernel C needs the step count. -> the bytes decoded."""
     from raisin_tpu_torch.engine.core import decompress_bytes
 
+    done = 0
     with record_function("rsnb.dec.host"):
-        return b"".join(decompress_bytes(p, algorithms, device=device) for p in _split(data, sizes, pos))
+        for p in _split(data, sizes, pos):
+            done += put(out, done, decompress_bytes(p, algorithms, device=device))
+    return done
 
 
 def _decompress_container(data: bytes, devices: list[torch.device]) -> bytes:
     algorithms, block_size, orig_size, sizes, aux, window, pos = _parse_header(data)
     if orig_size == 0:
         return b""
-    tok_lens = None
-    if algorithms in WITH_AUX and aux:
-        tok_lens = np.array(aux[0], dtype=np.int64)
+    stages = _stages(algorithms, window, aux=bool(aux))
+    tok_lens = np.array(aux[0], dtype=np.int64) if stages is not None and stages.aux else None
     sizes = np.array(sizes, dtype=np.int64)
     if pos + int(sizes.sum()) > len(data):
         raise ValueError("container: payloads run past the end of the data")
@@ -620,16 +646,15 @@ def _decompress_container(data: bytes, devices: list[torch.device]) -> bytes:
     # every range decodes into its slice of one host buffer (pinned for the cards' copies): no
     # bytes a range, no join
     starts = np.concatenate([[0], np.cumsum(np.maximum(out_lens, 0))])
-    with record_function("copy.pin"):
-        out = torch.empty(orig_size, dtype=torch.uint8, pin_memory=any(d.type == "cuda" for d in devices))
-    if algorithms not in PIPELINES or (algorithms == LZ_ARITH and tok_lens is None):
-        def decode(lo, hi, dev):
-            piece = _decode_per_block(data, int(offsets[lo]), sizes[lo:hi], algorithms, dev)
-            return _put(out[starts[lo] : starts[hi]], 0, piece)
-    else:
-        def decode(lo, hi, dev):
-            return _decode_rows(data, int(offsets[lo]), algorithms, sizes[lo:hi], out_lens[lo:hi], dev,
-                                None if tok_lens is None else tok_lens[lo:hi], out[starts[lo] : starts[hi]], lo)
+    out = host_buffer(orig_size, devices)
+
+    def decode(lo, hi, dev):
+        into = out[starts[lo] : starts[hi]]
+        if stages is None:
+            return _decode_per_block(data, int(offsets[lo]), sizes[lo:hi], algorithms, dev, into)
+        return _decode_rows(data, int(offsets[lo]), stages, sizes[lo:hi], out_lens[lo:hi], dev,
+                            None if tok_lens is None else tok_lens[lo:hi], into, lo)
+
     done = sum(_over_ranges(len(sizes), devices, decode))
     if done != orig_size:
         raise ValueError(f"container: decoded {done} bytes, expected {orig_size}")

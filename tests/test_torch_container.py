@@ -25,6 +25,7 @@ import raisin_tpu.native
 from raisin_tpu.formats import arithmetic_ref, lzss_ref
 from raisin_tpu.parallel import blocks as jax_blocks
 from raisin_tpu_torch.engine import core as port_core
+from raisin_tpu_torch.ops import device
 from raisin_tpu_torch.parallel import blocks as port_blocks
 from tests.fixtures import random_bytes, random_text
 
@@ -180,8 +181,8 @@ def test_block_lengths_split_like_jax(n, bs, want_lengths):
 
 def test_host_device_bytes_round_trip():
     for buf in (b"", b"abc", memoryview(b"xyzw")[1:3]):
-        t = port_blocks._h2d(buf, torch.device("cpu"))
-        assert t.dtype == torch.uint8 and port_blocks._d2h(t) == bytes(buf)
+        t = device.h2d(buf, torch.device("cpu"))
+        assert t.dtype == torch.uint8 and device.d2h(t) == bytes(buf)
 
 
 def test_rows_payloads_and_payload_rows_invert():

@@ -1,6 +1,7 @@
 """The host's copy into ``bytes`` (``ops/device.to_bytes``): the same bytes as ``tobytes()`` at every
 length around the split, the piece rule and its counter, one ``copy.bytes`` range a copy, many
-threads at once, and a pinned source on a card.
+threads at once, and a pinned source on a card; and ``ops/device.put``, which fills the host buffer
+that the copy reads.
 
 The card test is marked ``card`` and skips without one. On a machine with a card (this file
 imports no JAX; the directory's conftest.py does, so it is left out):
@@ -64,6 +65,14 @@ def test_the_counter_reads_whole_then_split(eight_cores):
     assert device.copies == {"whole": 1, "split": 1, "pieces": 4}
     device.reset_copy_counts()
     assert device.copies == {"whole": 0, "split": 0, "pieces": 0}
+
+
+def test_put_copies_as_far_as_the_buffer_reaches():
+    out = torch.zeros(6, dtype=torch.uint8)
+    assert device.put(out, 1, torch.tensor([1, 2, 3], dtype=torch.uint8)) == 3
+    assert device.put(out, 4, b"\x07\x08\x09") == 3
+    assert device.put(out, 6, b"\x05") == 1
+    assert out.tolist() == [0, 1, 2, 3, 7, 8]
 
 
 @pytest.mark.parametrize("n, cores, pieces", [

@@ -95,17 +95,6 @@ def test_container_equals_the_reference_payload_by_payload():
     assert huffman_blocks.host_split == {"encode": 0, "decode": 0}
 
 
-def test_trees_count_a_block_each_way():
-    data = _text()
-    huffman_blocks.reset_trees()
-    blob = blocks.compress_container(data, LZ_HUFF, BLOCK, window=WINDOW, device="cpu")
-    assert huffman_blocks.trees == {"encode": 5, "decode": 0}
-    assert blocks.decompress_container(blob, device="cpu") == data
-    assert huffman_blocks.trees == {"encode": 5, "decode": 5}
-    huffman_blocks.reset_trees()
-    assert huffman_blocks.trees == {"encode": 0, "decode": 0}
-
-
 def test_a_block_with_lt_is_byte_coded_on_the_card_and_round_trips():
     """'<' escapes to 0xFF, which Go's rune iteration reads as U+FFFD, so Go's stream of the block
     decodes to other token bytes. The port codes it over its bytes, on the card, as the reference
@@ -171,28 +160,51 @@ def _with_ids(tree, ids):
 
 
 def test_native_trees_are_the_formats_trees():
-    """The container's batch of trees in C against ``formats/huffman.build_tree``, on 1500 tables of 1-256
-    symbols with many ties: every code, length, depth and child table."""
+    """The container's trees in C, through the calls the program makes, against
+    ``formats/huffman.build_tree``, on 1500 tables of 1-256 symbols with many ties: every code, length and
+    deepest code by id from ``native.huffman_encode_tables``, and every child table from
+    ``native.huffman_read_headers`` of the tables' ``build_header`` text. A table with a byte >= 0x80 is
+    byte-coded where enough ASCII ids are free; the others take the host oracle and have no tree."""
     r = random.Random(2027)
     counts = np.zeros((1500, 256), dtype=np.int64)
-    ids = np.tile(np.arange(256, dtype=np.uint8), (1500, 1))
+    raw = np.zeros(1500, dtype=bool)
     for b in range(1500):
         syms = r.sample(range(256), r.choice([1, 2, 3, r.randint(2, 20), r.randint(2, 128), r.randint(100, 256)]))
         counts[b, syms] = [r.choice([1, 1, 2, 3, 5, r.randint(1, 50), r.randint(1, 10**9)]) for _ in syms]
-        if r.random() < 0.5 and huffman_blocks.ascii_ids(syms) is not None:
-            ids[b] = huffman_blocks.ascii_ids(syms)
-    codes, lens, tables, longest = native.huffman_trees(counts, ids)
+        pick = r.random() < 0.5
+        raw[b] = huffman_blocks.ascii_ids(syms) is not None and (pick or max(syms) >= 128)
+    t = native.huffman_encode_tables(counts, raw)
+    assert t.on_host.tolist() == [bool(c[128:].any()) and not w for c, w in zip(counts, raw)]
+    card = np.nonzero(~t.on_host)[0]
+    assert 600 < card.size < 1400 and raw[card].any() and not raw[card].all()
+    pieces = []
     for b in range(1500):
         syms = np.nonzero(counts[b])[0]
-        tree = port_hf.build_tree(dict(zip(syms.tolist(), counts[b, syms].tolist())))
+        freqs = dict(zip(syms.tolist(), counts[b, syms].tolist()))
+        pieces.append(port_hf.build_header(freqs, raw=bool(raw[b])) + port_hf.SEPARATOR + b"\x00")
+        if t.on_host[b]:
+            continue
+        ids = huffman_blocks.ascii_ids(syms) if raw[b] else np.arange(256, dtype=np.uint8)
+        assert t.ids[b].tolist() == ids.tolist()
+        tree = port_hf.build_tree(freqs)
         vals, bins = port_hf.print_codes(tree)
         ls = [len(c) for c in bins]
-        assert longest[b] == max(ls)
-        assert lens[b, vals].tolist() == ls and lens[b].sum() == sum(ls)
-        assert [int(c) for c, n in zip(codes[b, vals], ls) if n <= 32] == [int(c or "0", 2) for c in bins if len(c) <= 32]
-        want = None if isinstance(tree, port_hf.Leaf) else huffman_blocks.packed_table(_with_ids(tree, ids[b]))
-        assert tables[b].tolist() == (want.tolist() if want is not None else [0] * 64)
-    assert native.huffman_trees(np.zeros((1, 256), np.int64), ids[:1])[3].tolist() == [-1]
+        at = ids[vals]
+        assert native.huffman_encode_tables(counts[b : b + 1], raw[b : b + 1]).longest == max(ls)
+        assert t.code_lens[b, at].tolist() == ls and t.code_lens[b].sum() == sum(ls)
+        assert [int(c) for c, n in zip(t.codes[b, at], ls) if n <= 32] == [int(c or "0", 2) for c in bins if len(c) <= 32]
+    assert t.longest == max(native.huffman_encode_tables(counts[b : b + 1], raw[b : b + 1]).longest for b in card)
+    sizes = np.array([len(p) for p in pieces], dtype=np.int64)
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+    h = native.huffman_read_headers(b"".join(pieces), starts, sizes, 0)
+    assert h.taken.tolist() == [not host and np.count_nonzero(c) >= 2 for c, host in zip(counts, t.on_host)]
+    for b in np.nonzero(h.taken)[0].tolist():
+        syms = np.nonzero(counts[b])[0]
+        tree = port_hf.build_tree(dict(zip(syms.tolist(), counts[b, syms].tolist())))
+        assert h.ids[b, syms].tolist() == t.ids[b, syms].tolist() and h.raw[b] == (syms.max() >= 128)
+        assert h.tables[b].tolist() == huffman_blocks.packed_table(_with_ids(tree, t.ids[b])).tolist()
+    empty = native.huffman_encode_tables(np.zeros((1, 256), np.int64), np.zeros(1, bool))
+    assert empty.longest == -1 and not empty.on_host[0]
 
 
 def test_ascii_ids_take_free_values_from_the_top_never_zero():

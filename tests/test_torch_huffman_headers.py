@@ -5,7 +5,8 @@
 them in ``native.huffman_read_headers``; the host oracle decodes a block that
 the native reader does not take. The tests rebuild the per-block Python loops
 that these calls replace (``_python_code_tables``, ``_python_read_headers``:
-``build_header``, ``read_header`` and ``ascii_ids`` block by block) and
+``build_header``, ``read_header``, ``ascii_ids``, and the trees of
+``build_tree`` and ``packed_table``, block by block) and
 require the same bytes, counts, ids and card/host decisions, on seeded random
 count tables, on fuzzed headers and on whole containers; every comparison is
 exact. The one rule the loops lacked: a header count above
@@ -34,6 +35,36 @@ SEP = hf.SEPARATOR
 # The Python loops the native calls replace
 
 
+def _with_ids(tree, ids):
+    """The tree with each leaf's symbol replaced by its id."""
+    if isinstance(tree, hf.Leaf):
+        return hf.Leaf(tree.freq, int(ids[tree.value]))
+    return hf.Node(tree.freq, _with_ids(tree.left, ids), _with_ids(tree.right, ids))
+
+
+def _python_trees(counts: np.ndarray, ids: np.ndarray):
+    """Each row's Go tree from ``formats/huffman.build_tree`` -> (codes (B, 256) uint32, lens (B, 256) int32,
+    tables (B, 64) int32, longest (B,) int32), as the native runtime keeps them: a code past 32 bits is 0,
+    a one-leaf tree's code is empty and it has no child table (``huffman_blocks.packed_table`` at ``ids``),
+    nor has a tree with an id of 128 or more, and a row of zeros has no tree (longest -1)."""
+    B = len(counts)
+    codes, lens = np.zeros((B, 256), np.uint32), np.zeros((B, 256), np.int32)
+    tables, longest = np.zeros((B, 64), np.int32), np.full(B, -1, np.int32)
+    for b in range(B):
+        syms = np.nonzero(counts[b])[0]
+        if not syms.size:
+            continue
+        tree = hf.build_tree(dict(zip(syms.tolist(), counts[b, syms].tolist())))
+        vals, bins = hf.print_codes(tree)
+        lens[b, vals] = [len(c) for c in bins]
+        codes[b, vals] = [int(c, 2) if 0 < len(c) <= 32 else 0 for c in bins]
+        longest[b] = max(len(c) for c in bins)
+        table = None if isinstance(tree, hf.Leaf) else huffman_blocks.packed_table(_with_ids(tree, ids[b]))
+        if table is not None:
+            tables[b] = table
+    return codes, lens, tables, longest
+
+
 def _right_aligned(pieces: list[bytes], width: int) -> np.ndarray:
     out = np.zeros((len(pieces), width), dtype=np.uint8)
     for b, p in enumerate(pieces):
@@ -54,7 +85,7 @@ def _python_code_tables(counts: np.ndarray, raw: np.ndarray | None = None) -> na
         else:
             ids[b] = at
     card = np.where(on_host[:, None], 0, counts)
-    codes256, lens256, _, longest = native.huffman_trees(card, ids)
+    codes256, lens256, _, longest = _python_trees(card, ids)
     if (longest > huffman_rows.CONTAINER_CODE_BITS).any():
         raise ValueError(f"huffman: code length beyond {huffman_rows.CONTAINER_CODE_BITS} bits")
     codes = np.zeros((B, huffman_rows.NSYM), dtype=np.uint32)
@@ -137,7 +168,7 @@ def _python_read_headers(data, starts, sizes, base) -> native.ReadHeaders:
             out.back[b, at[list(freqs)]] = list(freqs)
         out.pads[b], out.pstart[b], out.blens[b] = pad, pstart - base, blen
     if out.taken.any():
-        out.tables[out.taken] = native.huffman_trees(out.freqs[out.taken], out.ids[out.taken])[2]
+        out.tables[out.taken] = _python_trees(out.freqs[out.taken], out.ids[out.taken])[2]
     return out
 
 

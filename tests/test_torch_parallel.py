@@ -106,14 +106,6 @@ def test_mesh_decode_checks_the_total_like_jax(extra):
         port_blocks.decompress_container(bad, mesh=port_mesh.data_mesh(3, device=CPU))
 
 
-def test_put_copies_as_far_as_the_buffer_reaches():
-    out = torch.zeros(6, dtype=torch.uint8)
-    assert port_blocks._put(out, 1, torch.tensor([1, 2, 3], dtype=torch.uint8)) == 3
-    assert port_blocks._put(out, 4, b"\x07\x08\x09") == 3
-    assert port_blocks._put(out, 6, b"\x05") == 1
-    assert out.tolist() == [0, 1, 2, 3, 7, 8]
-
-
 def test_mesh_shapes_and_ranges():
     m = port_mesh.data_mesh(8, device=CPU)
     assert m.shape == {"data": 8} and m.size == 8 and m.axis_names == ("data",)

@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from raisin_tpu_torch.engine.core import compress_bytes
-from raisin_tpu_torch.ops import device, lzss_match
+from raisin_tpu_torch.ops import device, huffman_blocks, lzss_match
 from raisin_tpu_torch.parallel import blocks
 from raisin_tpu_torch.parallel.mesh import data_mesh
 
@@ -92,9 +92,40 @@ def test_a_cpu_mesh_records_one_range_a_block_range(direction):
     assert names.count("rsnb.enc.h2d" if direction == "compress" else "rsnb.dec.h2d") == 2
     if direction == "compress":
         assert names.count("rsnb.enc.frame") == 1
-        assert names.count("copy.bytes") == 3  # each range's payloads, then their join
+    assert names.count("copy.pin") == 1 and names.count("copy.bytes") == 1  # one host buffer, one bytes
+
+
+@pytest.mark.parametrize("direction", ["compress", "decompress"])
+@pytest.mark.parametrize("algorithms", blocks.PIPELINES, ids=",".join)
+def test_every_card_pipeline_comes_back_through_one_host_buffer(algorithms, direction):
+    """On a two-entry mesh, each pipeline's header and both ranges' payloads, or both ranges' decoded
+    bytes, are put into one host buffer and copied into ``bytes`` once."""
+    data = _text(1200, seed=9)
+    mesh = data_mesh(2, device="cpu")
+    blob = blocks.compress_container(data, algorithms, block_size=256, mesh=mesh, window=64, device="cpu")
+    if direction == "compress":
+        names = _ranges(lambda: blocks.compress_container(data, algorithms, block_size=256, mesh=mesh, window=64,
+                                                          device="cpu"))
     else:
-        assert names.count("copy.pin") == 1 and names.count("copy.bytes") == 1
+        names = _ranges(lambda: blocks.decompress_container(blob, mesh=mesh, device="cpu"))
+    assert names.count("rsnb.range") == 2
+    assert names.count("copy.pin") == 1 and names.count("copy.bytes") == 1
+    assert names.index("copy.pin") < names.index("copy.bytes") and names[-1] == "copy.bytes"
+    assert blocks.decompress_container(blob, mesh=mesh, device="cpu") == data
+
+
+def test_huffman_oracle_blocks_come_back_in_the_rows():
+    """A ("huffman",) container of ASCII blocks and valid UTF-8 blocks, which the host oracle codes and
+    decodes, round-trips with the oracle's blocks put back through the card's rows: one copy into bytes."""
+    ascii_block, utf8_block = _no_lt(_text(256, seed=10)), ("naïve résumé " * 40).encode()[:256]
+    data = ascii_block + utf8_block + ascii_block + utf8_block[:-1] + b"z" + _no_lt(_text(100, seed=11))
+    assert data.decode() and not utf8_block.isascii()
+    blob = blocks.compress_container(data, ("huffman",), block_size=256, device="cpu")
+    huffman_blocks.reset_host_split()
+    names = _ranges(lambda: blocks.decompress_container(blob, device="cpu"))
+    assert huffman_blocks.host_split == {"encode": 0, "decode": 2}
+    assert names.count("copy.bytes") == 1 and names.count("rsnb.dec.d2h") == 1
+    assert blocks.decompress_container(blob, device="cpu") == data
 
 
 def _no_lt(data: bytes) -> bytes:
